@@ -1,0 +1,69 @@
+"""The PyTorch port stands apart from JAX.
+
+Importing every module of the port and running a CPU predict must leave
+``jax`` and ``flax`` unimported, and the port's sources hold no JAX import,
+no library attention, no ``torch.compile`` and no ``try`` near the kernel
+launch (a launch that fails must raise, not fall back).
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "touhouimageclassification_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py"))
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+import touhouimageclassification_tpu_torch as port
+mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+from touhouimageclassification_tpu.config import ViTConfig
+from touhouimageclassification_tpu_torch.infer.serve import Predictor
+from touhouimageclassification_tpu_torch.models.vit import ViT
+cfg = ViTConfig(image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                num_heads=4, mlp_dim=128, num_classes=3)
+p = Predictor(model=ViT(cfg, compute_dtype="float32", device="cpu"),
+              class_to_idx={"a": 0, "b": 1, "c": 2}, image_size=(32, 32),
+              mean=np.full(3, 0.5), std=np.full(3, 0.25),
+              device=torch.device("cpu"))
+pred, conf = p.predict_array(np.zeros((2, 48, 48, 3), np.uint8))
+assert pred.shape == (2,) and np.isfinite(conf).all()
+print(len(mods), sorted(m for m in ("jax", "flax") if m in sys.modules))
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_mods, loaded = out.stdout.split(maxsplit=1)
+    assert int(n_mods) >= 10
+    assert loaded.strip() == "[]"
+
+
+@pytest.mark.parametrize("pattern", [
+    r"^\s*(import|from)\s+(jax|flax)\b",
+    r"scaled_dot_product_attention",
+    r"torch\.compile",
+])
+def test_port_sources_avoid(pattern):
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in SOURCES
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if re.search(pattern, line)]
+    assert not hits, hits
+
+
+def test_kernel_wrapper_has_no_fallback():
+    src = (PORT / "ops" / "attention.py").read_text()
+    assert "try:" not in src and "except" not in src
+    assert "environ" not in src

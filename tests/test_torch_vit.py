@@ -1,0 +1,125 @@
+"""The port's ViT forward against the JAX ViT on the same weights and images.
+
+JAX ``ViT.init`` makes the parameters, :func:`from_jax_params` carries them
+into the port, and both forwards run in f32 on the CPU (the JAX ``'fused'``
+attention through its Pallas kernel in interpret mode). Tolerance 1e-4 on the
+logits: f32 summation order through two encoder layers.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import hf_vit_state_dict
+from touhouimageclassification_tpu.config import ViTConfig
+from touhouimageclassification_tpu.models.vit import ViT as JaxViT
+from touhouimageclassification_tpu.ops.gelu import gelu_fast
+from touhouimageclassification_tpu.utils.convert import load_torch_checkpoint
+from touhouimageclassification_tpu_torch.models import create_model
+from touhouimageclassification_tpu_torch.models.vit import ViT
+from touhouimageclassification_tpu_torch.ops.gelu import gelu
+from touhouimageclassification_tpu_torch.utils.convert import (from_jax_params,
+                                                               load_vit_weights)
+
+torch.set_num_threads(1)
+
+TINY = ViTConfig(image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                 num_heads=4, mlp_dim=128, num_classes=10)
+ATOL = 1e-4
+
+
+def _images(n=3, seed=0):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 32, 32, 3)).astype(np.float32)
+
+
+def _port_logits(cfg, state_dict, x):
+    model = ViT(cfg, compute_dtype="float32", device="cpu")
+    model.load_state_dict(state_dict)
+    with torch.no_grad():
+        return model(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("attention_impl", ["fused", "xla"])
+@pytest.mark.parametrize("gelu_variant", ["exact", "fast"])
+def test_logits_match_jax(monkeypatch, attention_impl, gelu_variant):
+    monkeypatch.setenv("TIC_PALLAS_INTERPRET", "1")
+    cfg = dataclasses.replace(TINY, attention_impl=attention_impl,
+                              gelu=gelu_variant)
+    x = _images()
+    jax_model = JaxViT(cfg, compute_dtype="float32")
+    params = jax_model.init(jax.random.key(0), x)
+    want = np.asarray(jax_model.apply(params, x))
+    got = _port_logits(cfg, from_jax_params(params, cfg), x)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("attention_impl", ["fused", "xla"])
+def test_bf16_logits_within_jax_bf16_rounding(attention_impl):
+    """bf16 rounds at other places in the two frameworks, so the port's bf16
+    logits may differ from JAX's bf16 logits, but by no more than JAX's own
+    bf16 logits differ from its f32 logits on the same inputs."""
+    cfg = dataclasses.replace(TINY, attention_impl=attention_impl)
+    x = _images(4)
+    params = JaxViT(cfg, compute_dtype="float32").init(jax.random.key(0), x)
+    want = np.asarray(JaxViT(cfg, compute_dtype="bfloat16").apply(params, x))
+    want32 = np.asarray(JaxViT(cfg, compute_dtype="float32").apply(params, x))
+    model = ViT(cfg, compute_dtype="bfloat16", device="cpu")
+    model.load_state_dict(from_jax_params(params, cfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= np.abs(want - want32).max()
+
+
+def test_erf_gelu_within_fast_gelu_bound():
+    """The port computes erf GELU for 'fast'; the JAX fit stays within
+    0.12 x the tanh approximation's 4.7e-4 of it."""
+    x = np.linspace(-8, 8, 20001, dtype=np.float32)
+    ours = gelu(torch.from_numpy(x), "fast").numpy()
+    assert np.abs(ours - np.asarray(gelu_fast(x))).max() < 6e-5
+
+
+def test_from_jax_params_rejects_depth_mismatch():
+    x = _images(1)
+    params = JaxViT(TINY, compute_dtype="float32").init(jax.random.key(0), x)
+    with pytest.raises(ValueError, match="2 encoder layers"):
+        from_jax_params(params, dataclasses.replace(TINY, num_layers=3))
+
+
+@pytest.mark.parametrize("ext", [".pth", ".safetensors"])
+@pytest.mark.parametrize("ckpt_classes", [10, 7])
+def test_hf_checkpoint_matches_jax_loader(tmp_path, ext, ckpt_classes):
+    """HF-layout checkpoint -> both loaders -> the same logits; a head of
+    another class count is re-initialised the same way on both sides."""
+    sd = hf_vit_state_dict(64, 2, 128, ckpt_classes, image_size=32, patch=8)
+    path = str(tmp_path / f"vit{ext}")
+    if ext == ".pth":
+        torch.save(sd, path)
+    else:
+        from safetensors.torch import save_file
+
+        save_file(sd, path)
+    x = _images()
+    jax_model = JaxViT(TINY, compute_dtype="float32")
+    if ext == ".pth":
+        params, _ = load_torch_checkpoint(path, jax_model, TINY.num_classes)
+    else:
+        params, _ = load_torch_checkpoint(dict(sd), jax_model,
+                                          TINY.num_classes)
+    want = np.asarray(jax_model.apply({"params": params}, x))
+    got = _port_logits(TINY, load_vit_weights(path, TINY), x)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="K4"):
+        ViT(dataclasses.replace(TINY, attention_impl="flash"), device="cpu")
+    with pytest.raises(NotImplementedError, match="K5"):
+        ViT(dataclasses.replace(TINY, patch_embed_impl="pallas"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ResNet"):
+        create_model("resnet152", num_classes=10)
+    with pytest.raises(ValueError, match="Input spatial size"):
+        ViT(TINY, device="cpu")(torch.zeros(1, 16, 16, 3))
