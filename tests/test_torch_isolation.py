@@ -1,9 +1,10 @@
 """The PyTorch port stands apart from JAX.
 
-Importing every module of the port and running a CPU predict must leave
-``jax`` and ``flax`` unimported, and the port's sources hold no JAX import,
-no library attention, no ``torch.compile`` and no ``try`` near the kernel
-launch (a launch that fails must raise, not fall back).
+Importing every module of the port, running a CPU predict and one CPU train
+step must leave ``jax`` and ``flax`` unimported, and the port's sources hold
+no JAX import, no library attention, no ``torch.compile``, and no ``try`` or
+environment switch near a kernel launch or a device choice (a launch that
+fails must raise, not fall back).
 """
 import os
 import pathlib
@@ -36,6 +37,16 @@ p = Predictor(model=ViT(cfg, compute_dtype="float32", device="cpu"),
               device=torch.device("cpu"))
 pred, conf = p.predict_array(np.zeros((2, 48, 48, 3), np.uint8))
 assert pred.shape == (2,) and np.isfinite(conf).all()
+from touhouimageclassification_tpu.config import OptimizerConfig, TrainConfig
+from touhouimageclassification_tpu_torch.train.trainer import Trainer
+t = Trainer(TrainConfig(optimizer=OptimizerConfig(learning_rate=1e-3)),
+            model=ViT(cfg, compute_dtype="float32", device="cpu",
+                      param_dtype="float32"), device="cpu")
+state = t.init_state()
+batch = {"image": np.full((4, 36, 36, 3), 128, np.uint8),
+         "label": np.arange(4, dtype=np.int32) % 3, "mask": np.ones(4, bool)}
+m = t.train_step(state, t.stage(batch))
+assert np.isfinite(m["loss"]) and state.step == 1
 print(len(mods), sorted(m for m in ("jax", "flax") if m in sys.modules))
 """
 
@@ -63,7 +74,28 @@ def test_port_sources_avoid(pattern):
     assert not hits, hits
 
 
+def test_chip_smoke_imports_only_the_port():
+    """The GPU smoke run reaches the configs and the loader through the port:
+    it imports neither JAX nor the JAX package."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    hits = re.findall(
+        r"^\s*(?:import|from)\s+(jax|flax|touhouimageclassification_tpu)\b",
+        src, re.M)
+    assert not hits, hits
+
+
+NO_FALLBACK = ("ops/attention.py", "ops/_build.py", "device.py",
+               "train/trainer.py", "train/optim.py", "train/losses.py",
+               "ops/augment.py", "ops/mixup.py")
+
+
 def test_kernel_wrapper_has_no_fallback():
-    src = (PORT / "ops" / "attention.py").read_text()
-    assert "try:" not in src and "except" not in src
-    assert "environ" not in src
+    """The kernel wrappers (K1 and K2), the build, the device choice and the
+    train modules that place tensors: no try/except to fall back with and no
+    environment switch. (The build reads CUDA_HOME to find nvcc, and
+    nothing else.)"""
+    for module in NO_FALLBACK:
+        src = (PORT / module).read_text()
+        assert "try:" not in src and "except" not in src, module
+        environ = [line for line in src.splitlines() if "environ" in line]
+        assert all("CUDA_HOME" in line for line in environ), (module, environ)

@@ -1,9 +1,10 @@
-"""The port's ViT forward against the JAX ViT on the same weights and images.
+"""The port's ViT forward and gradients against the JAX ViT on the same
+weights and images.
 
 JAX ``ViT.init`` makes the parameters, :func:`from_jax_params` carries them
-into the port, and both forwards run in f32 on the CPU (the JAX ``'fused'``
-attention through its Pallas kernel in interpret mode). Tolerance 1e-4 on the
-logits: f32 summation order through two encoder layers.
+into the port, and both run in f32 on the CPU (the JAX ``'fused'`` attention
+through its Pallas kernels in interpret mode). Tolerance 1e-4 on the logits:
+f32 summation order through two encoder layers.
 """
 import dataclasses
 
@@ -18,6 +19,7 @@ from touhouimageclassification_tpu.models.vit import ViT as JaxViT
 from touhouimageclassification_tpu.ops.gelu import gelu_fast
 from touhouimageclassification_tpu.utils.convert import load_torch_checkpoint
 from touhouimageclassification_tpu_torch.models import create_model
+from touhouimageclassification_tpu_torch.models import vit as port_vit
 from touhouimageclassification_tpu_torch.models.vit import ViT
 from touhouimageclassification_tpu_torch.ops.gelu import gelu
 from touhouimageclassification_tpu_torch.utils.convert import (from_jax_params,
@@ -123,3 +125,122 @@ def test_unported_options_raise():
         create_model("resnet152", num_classes=10)
     with pytest.raises(ValueError, match="Input spatial size"):
         ViT(TINY, device="cpu")(torch.zeros(1, 16, 16, 3))
+
+
+@pytest.mark.parametrize("attention_impl", ["fused", "xla"])
+def test_gradients_match_jax(monkeypatch, attention_impl):
+    """Gradients of sum(logits * w) w.r.t. every parameter against
+    jax.grad of the JAX ViT, mapped through from_jax_params. f32; the bound
+    covers summation order through the backward of two layers."""
+    monkeypatch.setenv("TIC_PALLAS_INTERPRET", "1")
+    cfg = dataclasses.replace(TINY, attention_impl=attention_impl, gelu="exact")
+    x = _images()
+    w = np.random.default_rng(1).standard_normal((3, 10)).astype(np.float32)
+    jax_model = JaxViT(cfg, compute_dtype="float32")
+    params = jax_model.init(jax.random.key(0), x)
+    grads = jax.grad(lambda p: (jax_model.apply(p, x) * w).sum())(params)
+    want = from_jax_params(grads, cfg)
+
+    model = ViT(cfg, compute_dtype="float32", device="cpu",
+                param_dtype="float32")
+    model.load_state_dict(from_jax_params(params, cfg))
+    (model(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], atol=1e-4, rtol=1e-4,
+                                   msg=k)
+
+
+def test_f32_params_bf16_compute_give_f32_gradients():
+    """Training holds f32 master parameters and computes in bf16 (the JAX
+    model's param_dtype=float32): gradients land in f32, and the forward
+    rounds each weight to bf16 as the bf16-stored serve model does."""
+    x = torch.from_numpy(_images(2))
+    params = JaxViT(TINY, compute_dtype="float32").init(
+        jax.random.key(0), x.numpy())
+    train = ViT(TINY, compute_dtype="bfloat16", device="cpu",
+                param_dtype="float32")
+    serve = ViT(TINY, compute_dtype="bfloat16", device="cpu")
+    sd = from_jax_params(params, TINY)
+    train.load_state_dict(sd)
+    serve.load_state_dict(sd)
+    assert train.layer[0].attn.qkv.weight.dtype == torch.float32
+    assert serve.layer[0].attn.qkv.weight.dtype == torch.bfloat16
+    train(x).sum().backward()
+    assert all(p.grad.dtype == torch.float32 for p in train.parameters())
+    with torch.no_grad():
+        torch.testing.assert_close(train(x), serve(x), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("plain,recomputed", [
+    (dict(remat=False), dict(remat=True)),
+    (dict(attention_impl="xla"), dict(attention_impl="xla_remat"))])
+def test_remat_gives_the_same_gradients(plain, recomputed):
+    """Layer remat and 'xla_remat' recompute in the backward what they do not
+    save: the gradients are the same, bit for bit."""
+    x = torch.from_numpy(_images(2))
+    sd = from_jax_params(JaxViT(TINY, compute_dtype="float32").init(
+        jax.random.key(0), x.numpy()), TINY)
+    grads = []
+    for over in (plain, recomputed):
+        model = ViT(dataclasses.replace(TINY, **over),
+                    compute_dtype="float32", device="cpu").train()
+        model.load_state_dict(sd)
+        model(x).sum().backward()
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_remat_dots_policy_is_not_ported():
+    with pytest.raises(NotImplementedError, match="dots"):
+        ViT(dataclasses.replace(TINY, remat=True, remat_policy="dots"),
+            device="cpu")
+
+
+def test_fused_with_attention_dropout_takes_plain_attention(monkeypatch):
+    """The JAX rule (models/vit.py:107): 'fused' with attention dropout runs
+    the plain attention, so a train() forward launches no slab kernel; in
+    eval() it is the rate-0 model, bit for bit."""
+    calls = []
+    real = port_vit.slab_attention
+
+    def counting(qkv, heads):
+        calls.append(qkv.shape)
+        return real(qkv, heads)
+
+    monkeypatch.setattr(port_vit, "slab_attention", counting)
+    x = torch.from_numpy(_images(2))
+    sd = from_jax_params(JaxViT(TINY, compute_dtype="float32").init(
+        jax.random.key(0), x.numpy()), TINY)
+    drop = ViT(dataclasses.replace(TINY, attention_dropout_rate=0.5),
+               compute_dtype="float32", device="cpu")
+    plain = ViT(TINY, compute_dtype="float32", device="cpu")
+    drop.load_state_dict(sd)
+    plain.load_state_dict(sd)
+
+    torch.manual_seed(0)
+    dropped = drop.train()(x)
+    assert calls == []
+    with torch.no_grad():
+        assert not torch.equal(dropped, plain.eval()(x))
+        assert calls == [(2, 17, 192)] * TINY.num_layers
+        torch.testing.assert_close(drop.eval()(x), plain(x), atol=0, rtol=0)
+    assert len(calls) == 2 * TINY.num_layers
+
+
+def test_dropout_only_in_train_mode():
+    """Embedding and MLP dropout run in train() mode only."""
+    cfg = dataclasses.replace(TINY, dropout_rate=0.3)
+    x = torch.from_numpy(_images(2))
+    sd = from_jax_params(JaxViT(TINY, compute_dtype="float32").init(
+        jax.random.key(0), x.numpy()), TINY)
+    model = ViT(cfg, compute_dtype="float32", device="cpu")
+    ref = ViT(TINY, compute_dtype="float32", device="cpu")
+    model.load_state_dict(sd)
+    ref.load_state_dict(sd)
+    with torch.no_grad():
+        torch.testing.assert_close(model.eval()(x), ref(x), atol=0, rtol=0)
+        torch.manual_seed(0)
+        assert not torch.equal(model.train()(x), ref(x))

@@ -7,10 +7,14 @@ HF checkpoint readers) and never imports JAX.
 
 Subpackages
 -----------
+- ``config``  the configs and presets (the JAX package's, which import no JAX)
+- ``data``    ImageFolder scan, split and the host batch loader
 - ``device``  explicit device resolution (no quiet CPU fallback)
-- ``ops``     slab attention (hand-written CUDA kernel + plain version),
-  GELU, resize/normalize, the kernel build
+- ``ops``     slab attention (hand-written CUDA kernels, forward and
+  backward, + plain versions), GELU, augmentation, CutMix/MixUp, the kernel
+  build
 - ``models``  the ViT family
 - ``utils``   weight conversion from the JAX parameter tree and HF checkpoints
+- ``train``   losses, optimizer, the NaN-guarded train step and evaluation
 - ``infer``   serving: Predictor, single-image serve, dataset judge CLI
 """

@@ -30,79 +30,19 @@
 // the shared-memory instructions; rows are padded by two elements so that
 // those pair loads are free of bank conflicts; one K/V staging serves 64
 // query rows. Tensor-core MMA (mma.sync, then wgmma fed by TMA) is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "slab_attention_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using namespace tic;
 
-template <typename T>
-struct Pair;
-template <>
-struct Pair<float> {
-  using type = float2;
-};
-template <>
-struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-};
-
-__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-
-template <typename T>
-__device__ __forceinline__ typename Pair<T>::type from_floats(float a, float b);
-template <>
-__device__ __forceinline__ float2 from_floats<float>(float a, float b) {
-  return make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat162 from_floats<__nv_bfloat16>(float a,
-                                                                     float b) {
-  return __floats2bfloat162_rn(a, b);
-}
-
-// Rounds an f32 probability to the input type and back (round to nearest even).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+constexpr int kBlockQ = kBlockRows;
 
 // Shared memory, in this order: K_h and V_h as N rows of kStride elements,
-// then one f32 row of N scores per warp. kStride = D + 2 makes the row pitch
-// an odd number of pairs, so 32 lanes reading pairs of 32 different rows hit
-// 32 different banks.
-template <typename T, int D>
-constexpr int kStride = D + 2;
-
+// then one f32 row of N scores per warp.
 template <typename T, int D>
 size_t smem_bytes(int n) {
-  return 2 * static_cast<size_t>(n) * kStride<T, D> * sizeof(T) +
+  return 2 * static_cast<size_t>(n) * kStride<D> * sizeof(T) +
          static_cast<size_t>(kWarps) * n * sizeof(float);
 }
 
@@ -111,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
     slab_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                               int n, int num_heads, float scale) {
   using T2 = typename Pair<T>::type;
-  constexpr int S = kStride<T, D>;
+  constexpr int S = kStride<D>;
   constexpr int kPairs = D / 2;                  // element pairs in a head row
   constexpr int kPairsPerLane = (kPairs + 31) / 32;
 

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from touhouimageclassification_tpu.config import NUM_CLASSES, vit_config
-
+from ..config import NUM_CLASSES, vit_config
 from .vit import ViT
 
 __all__ = ["ViT", "create_model"]
@@ -24,12 +23,15 @@ _NOT_PORTED = {
 
 def create_model(model_type: str, num_classes: int = NUM_CLASSES,
                  compute_dtype: str = "bfloat16", device=None,
-                 **overrides: Any) -> ViT:
-    """``vit-base``, ``vit-large`` or ``google/vit-*`` -> :class:`ViT`."""
+                 param_dtype: str | None = None, **overrides: Any) -> ViT:
+    """``vit-base``, ``vit-large`` or ``google/vit-*`` -> :class:`ViT`.
+    ``param_dtype`` defaults to ``compute_dtype`` (serving); training passes
+    ``'float32'``."""
     mt = model_type.lower()
     if mt in ("vit-base", "vit-large") or mt.startswith("google/vit"):
         cfg = vit_config(mt, num_classes=num_classes, **overrides)
-        return ViT(cfg, compute_dtype=compute_dtype, device=device)
+        return ViT(cfg, compute_dtype=compute_dtype, device=device,
+                   param_dtype=param_dtype)
     family = next((v for k, v in _NOT_PORTED.items() if mt.startswith(k)), None)
     if family is not None:
         raise NotImplementedError(f"model type {model_type!r} is not ported "

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc`` + ctypes.
 
-The sources compile into one shared library with a plain C interface,
-``build/torch_kernels/<key>/libtic_kernels.so`` at the repository root, where
-``<key>`` is the sha256 of the sources, the flags and the compiler. The build
-happens at first use, so a fresh checkout needs nothing built beforehand, and
-an edited source builds a new library. ``nvcc``'s ``-Xptxas -v`` report
-(registers, shared memory, spills per kernel) is kept beside it as
-``nvcc.log``. Nothing here runs at import time: the CPU tests import every
-module on machines without ``nvcc``.
+Each source compiles to an object file, all of them at once (one ``nvcc``
+process per source), and the objects link into one shared library with a
+plain C interface, ``build/torch_kernels/<key>/libtic_kernels.so`` at the
+repository root, where ``<key>`` is the sha256 of the sources and headers, the
+flags and the compiler. The build happens at first use, so a fresh checkout
+needs nothing built beforehand, and an edited source builds a new library.
+``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills per
+kernel) is kept beside it as ``nvcc.log``. Nothing here runs at import time:
+the CPU tests import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 LIB_NAME = "libtic_kernels.so"
 
 
@@ -44,26 +46,41 @@ def build_library() -> Path:
     nvcc = find_nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     key = hashlib.sha256()
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         key.update(src.name.encode())
         key.update(src.read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
+    key.update(" ".join(COMPILE_FLAGS).encode())
     key.update(nvcc.encode())
     out_dir = BUILD_ROOT / key.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a per-process name, then rename: a concurrent loader must
-    # never open a half-written library
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    # objects and library under per-process names, then rename: a concurrent
+    # loader must never open a half-written library
+    pid = os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
+    compiles = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                                  str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+                for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in compiles]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(src, proc.returncode) for src, proc in zip(sources, compiles)
+              if proc.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((tmp, proc.returncode))
+    (out_dir / "nvcc.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n{''.join(logs)}")
     os.replace(tmp, lib)
     return lib
 
@@ -79,6 +96,11 @@ def load_library() -> ctypes.CDLL:
     lib.tic_slab_attention_fwd.restype = i32
     lib.tic_slab_attention_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.tic_slab_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.tic_slab_attention_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                           i32, i32, ctypes.c_float, ptr]
+    lib.tic_slab_attention_bwd.restype = i32
+    lib.tic_slab_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
+    lib.tic_slab_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.tic_max_smem_optin.argtypes = [i32]
     lib.tic_max_smem_optin.restype = i32
     return lib
