@@ -14,10 +14,14 @@ fatal on failure:
    (one ``nvcc`` per source, in parallel) and print ptxas's report;
 3. hold the slab attention forward kernel (K1) against its plain PyTorch
    version on the card at the serve path's shapes, and time it, its plain
-   version and ``F.scaled_dot_product_attention``;
+   version and ``F.scaled_dot_product_attention``; then in bf16 at every N
+   of ``SWEEP_N`` and D of ``SWEEP_D`` (B 1), checking that bf16 launches
+   take the tensor-core route (``mma``) and f32 the SIMT route, and that a
+   shape past shared memory raises;
 4. the same for the backward kernel (K2) at the train path's shapes (the
    library call is SDPA's autograd backward), and check that autograd
-   through the fused attention runs K1 then K2;
+   through the fused attention runs K1 then K2; measure how far the
+   probabilities of K2's two passes differ;
 5. the same for the three-operand attention (K3, forward and backward), the
    (B, N, H, D) attention forward (K4, on the q, k, v views of a QKV slab,
    as the model hands them) and the patch embedding (K5, against
@@ -29,6 +33,7 @@ fatal on failure:
 7. compare the whole model on the same weights and images: plain attention
    and 'flash' + 'pallas' against the default; time bucket-1 latency and
    bucket-64 throughput of each, counting K4 and K5 launches per forward;
+   profile one bucket-64 'fused' forward;
 8. five ``nvit`` train steps (full augmentation, CutMix/MixUp, AdamW, bf16
    over f32 params, NaN guard) through the port's ``Trainer`` on batches of
    the fixture's 256x256 canvases from ``HostImageLoader``: finite, unskipped
@@ -99,6 +104,13 @@ REL_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 # (each input read once, each output written once) over the memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# The attention kernels' shape sweep in bf16 (B 1, two heads): N from one
+# token to ViT at 384^2 (577), through a 16-row chunk, ragged edges and
+# ViT-L's 197; every head dim the kernels take. At N 577, D 128 the operands
+# exceed shared memory and the launch must raise.
+SWEEP_N = (1, 16, 67, 197, 257, 577)
+SWEEP_D = (32, 64, 128)
+ROUTES = {"bfloat16": "mma", "float32": "simt"}
 # The model variants: the default configuration, the plain attention, and
 # the slice of the three-operand kernels ('flash' = K4, 'pallas' = K5).
 VARIANTS = {
@@ -213,20 +225,82 @@ def attention_bound(b, n, c, h, dtype, backward: bool):
                  elems * (2 if dtype_key(dtype) == "bfloat16" else 4), dtype)
 
 
-def check_close(torch, what: str, out, ref, dtype) -> float:
+def check_close(torch, what: str, out, ref, dtype, verbose: bool = True):
     """Kernel output against its plain version: elementwise within TOL and,
-    in norm, within REL_TOL; returns the largest |difference|."""
+    in norm, within REL_TOL; returns the largest |difference| (and, quiet,
+    the relative difference in norm)."""
     out, ref = out.float(), ref.float()
     err = (out - ref).abs().max().item()
     rel = ((out - ref).norm() / ref.norm()).item()
     key = dtype_key(dtype)
-    print(f"{what}, {key}: max |diff| {err:.3e} (atol {TOL[key]['atol']}, "
-          f"rtol {TOL[key]['rtol']}), relative norm {rel:.3e} (bound "
-          f"{REL_TOL[key]})")
+    if verbose:
+        print(f"{what}, {key}: max |diff| {err:.3e} (atol {TOL[key]['atol']}, "
+              f"rtol {TOL[key]['rtol']}), relative norm {rel:.3e} (bound "
+              f"{REL_TOL[key]})")
     torch.testing.assert_close(out, ref, **TOL[key])
     if rel > REL_TOL[key]:
         raise AssertionError(f"{what} {key}: relative norm {rel:.3e}")
-    return err
+    return err if verbose else (err, rel)
+
+
+def on_route(attn, dtype, launches: int, run):
+    """``run()``, which makes ``launches`` kernel launches: every one must
+    take the dtype's route (bf16 ``mma``, f32 ``simt``). Returns its
+    result."""
+    want = ROUTES[dtype_key(dtype)]
+    before = dict(attn.route_launches)
+    out = run()
+    made = {r: attn.route_launches[r] - before[r] for r in before}
+    if made != {r: launches if r == want else 0 for r in made}:
+        raise AssertionError(f"{dtype_key(dtype)} launches by route {made}, "
+                             f"expected {launches} on {want}")
+    return out
+
+
+def sweep(torch, attn, what: str, backward: bool, make) -> None:
+    """One kernel in bf16 over SWEEP_N x SWEEP_D (B 1, two heads): its
+    shared memory as the wrapper computes it equals the C function's; a
+    shape that fits runs on the mma route within TOL and REL_TOL of its
+    plain version, a shape that does not raises before launching.
+    ``make(n, c, h)`` returns (kernel call, plain call)."""
+    torch.cuda.synchronize()
+    lib = attn.load_library()
+    limit = lib.tic_max_smem_optin(0)
+    c_bytes = (lib.tic_slab_attention_bwd_smem_bytes if backward
+               else lib.tic_slab_attention_fwd_smem_bytes)
+    worst, raised = (0.0, 0.0), []
+    for d in SWEEP_D:
+        for n in SWEEP_N:
+            need = attn.kernel_smem_bytes("mma", backward, n, d)
+            if need != c_bytes(n, d, 1):
+                raise AssertionError(f"{what} N {n} D {d}: shared memory "
+                                     f"{need} (wrapper) vs {c_bytes(n, d, 1)}")
+            kernel, plain = make(n, 2 * d, 2)
+            if need > limit:
+                before = dict(attn.route_launches)
+                try:
+                    kernel()
+                except ValueError:
+                    if attn.route_launches != before:
+                        raise AssertionError(f"{what} N {n} D {d}: counted")
+                    raised.append((n, d))
+                    continue
+                raise AssertionError(f"{what} N {n} D {d}: {need} bytes of "
+                                     f"shared memory past {limit} launched")
+            out = on_route(attn, torch.bfloat16, 1, kernel)
+            torch.cuda.synchronize()
+            if isinstance(out, tuple):
+                out, ref = torch.cat(out, -1), torch.cat(plain(), -1)
+            else:
+                ref = plain()
+            got = check_close(torch, f"{what} N {n} D {d}", out, ref,
+                              torch.bfloat16, verbose=False)
+            worst = tuple(max(a, b) for a, b in zip(worst, got))
+    print(f"{what}, bf16 sweep N {SWEEP_N} x D {SWEEP_D} (B 1, H 2): every "
+          f"launch on the mma route; worst max |diff| {worst[0]:.3e}, "
+          f"relative norm {worst[1]:.3e} (bounds {TOL['bfloat16']}, "
+          f"{REL_TOL['bfloat16']}); raised as past shared memory ({limit} "
+          f"bytes): {raised}")
 
 
 def sdpa(torch, q, k, v):
@@ -265,7 +339,7 @@ def phase_kernels(torch, attn):
         for name, b, n, c, h, dtype in cases:
             qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(dtype)
             before = attn.launches
-            out = attn.slab_attention(qkv, h)
+            out = on_route(attn, dtype, 1, lambda: attn.slab_attention(qkv, h))
             torch.cuda.synchronize()
             if attn.launches != before + 1:
                 raise AssertionError(f"{name}: launches went {before} -> "
@@ -273,6 +347,14 @@ def phase_kernels(torch, attn):
             errs[(name, dtype)] = check_close(
                 torch, f"K1 vs plain, {name}", out,
                 attn.slab_attention_reference(qkv, h), dtype)
+
+        def slab(n, c, h):
+            qkv = torch.randn(1, n, 3 * c, generator=gen, device=dev).to(
+                torch.bfloat16)
+            return (lambda: attn.slab_attention(qkv, h),
+                    lambda: attn.slab_attention_reference(qkv, h))
+
+        sweep(torch, attn, "K1", False, slab)
         qkv = torch.randn(64, 197, 3 * 1024, generator=gen,
                           device=dev).to(torch.bfloat16)
         ms = cuda_ms(lambda: attn.slab_attention(qkv, 16))
@@ -305,7 +387,8 @@ def phase_backward(torch, attn):
         qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(dtype)
         g = torch.randn(b, n, c, generator=gen, device=dev).to(dtype)
         before = attn.bwd_launches
-        out = attn.slab_attention_backward(qkv, g, h)
+        out = on_route(attn, dtype, 1,
+                       lambda: attn.slab_attention_backward(qkv, g, h))
         torch.cuda.synchronize()
         if attn.bwd_launches != before + 1:
             raise AssertionError(f"{name}: bwd_launches went {before} -> "
@@ -329,6 +412,28 @@ def phase_backward(torch, attn):
         raise AssertionError("autograd gradient differs from K2's")
     print("autograd through slab_attention: one K1 + one K2 launch, gradient "
           "identical to K2's")
+
+    def slab(n, c, h):
+        qkv = torch.randn(1, n, 3 * c, generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn(1, n, c, generator=gen, device=dev).to(torch.bfloat16)
+        return (lambda: attn.slab_attention_backward(qkv, g, h),
+                lambda: attn.slab_attention_backward_reference(qkv, g, h))
+
+    sweep(torch, attn, "K2", True, slab)
+
+    # The two passes form S as Q K^T (pass 1) and K Q^T (pass 2) on the
+    # tensor cores: how far apart are the probabilities they form?
+    for b, n, c, h in [(8, 197, 1024, 16), (2, 67, 64, 2), (2, 257, 256, 2)]:
+        q, k, v, g = (torch.randn(b, n, c, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(4))
+        p1, p2 = attn.backward_probabilities(q, k, v, g, h)
+        if not (torch.isfinite(p1).all() and torch.isfinite(p2).all()):
+            raise AssertionError("a pass left a probability unwritten")
+        diff = (p1 - p2).abs()
+        print(f"K2 pass 1 vs pass 2 probabilities, B {b} N {n} H {h} D "
+              f"{c // h}: {int((p1 != p2).sum())} of {p1.numel()} differ, max "
+              f"|diff| {diff.max().item():.3e}")
 
     qkv = torch.randn(64, 197, 3 * 1024, generator=gen,
                       device=dev).to(torch.bfloat16)
@@ -378,8 +483,10 @@ def phase_three_operand_kernels(torch, attn, pe):
                                     ("odd: N 67, H 5, D 32", 2, 67, 160, 5, f32)]:
         q, k, v, g = (randn(b, n, c, dtype=dtype) for _ in range(4))
         before = tuple(getattr(m, a) for m, a in packed)
-        fwd = attn.packed_attention_forward(q, k, v, h)
-        grads = attn.packed_attention_backward(q, k, v, g, h)
+        fwd = on_route(attn, dtype, 1,
+                       lambda: attn.packed_attention_forward(q, k, v, h))
+        grads = on_route(attn, dtype, 1,
+                         lambda: attn.packed_attention_backward(q, k, v, g, h))
         launched(packed, (before[0] + 1, before[1] + 1))
         err = check_close(torch, f"K3 forward vs plain, {name}", fwd,
                           attn.packed_attention_reference(q, k, v, h), dtype)
@@ -423,7 +530,8 @@ def phase_three_operand_kernels(torch, attn, pe):
         else:
             q, k, v = (randn(b, n, h, c // h, dtype=dtype) for _ in range(3))
         before = attn.flash_launches
-        fwd = attn.flash_attention_forward(q, k, v)
+        fwd = on_route(attn, dtype, 1,
+                       lambda: attn.flash_attention_forward(q, k, v))
         launched(flash, (before + 1,))
         err = check_close(torch, f"K4 vs plain, {name}", fwd,
                           attn.flash_attention_reference(q, k, v), dtype)
@@ -436,6 +544,26 @@ def phase_three_operand_kernels(torch, attn, pe):
                     lambda: attn.flash_attention_reference(q, k, v)),
                 library_ms=cuda_ms(lambda: sdpa(torch, q, k, v)),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+    def three(n, c, h):
+        q, k, v = (randn(1, n, c, dtype=bf16) for _ in range(3))
+        return (lambda: attn.packed_attention_forward(q, k, v, h),
+                lambda: attn.packed_attention_reference(q, k, v, h))
+
+    def three_bwd(n, c, h):
+        q, k, v, g = (randn(1, n, c, dtype=bf16) for _ in range(4))
+        return (lambda: attn.packed_attention_backward(q, k, v, g, h),
+                lambda: attn.packed_attention_backward_reference(q, k, v, g, h))
+
+    def slab_views(n, c, h):
+        q, k, v = randn(1, n, 3 * c, dtype=bf16).view(
+            1, n, 3, h, c // h).unbind(2)
+        return (lambda: attn.flash_attention_forward(q, k, v),
+                lambda: attn.flash_attention_reference(q, k, v))
+
+    sweep(torch, attn, "K3 fwd", False, three)
+    sweep(torch, attn, "K3 bwd", True, three_bwd)
+    sweep(torch, attn, "K4 on views of the QKV slab", False, slab_views)
 
     # K5 on the model's operands: NHWC images in the compute dtype, the
     # (D, P*P*C) nn.Linear weight and the bias, cast to it
@@ -504,6 +632,7 @@ def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
     n_images = NUM_CLASSES * PER_CLASS
     forwards = -(-n_images // serve.BUCKETS[-1])
     attn.launches = 0
+    attn.route_launches.update(mma=0, simt=0)
     for cache in ("off", "on"):
         out_csv = os.path.join(work, f"judge_cache_{cache}.csv")
         before = attn.launches
@@ -540,6 +669,10 @@ def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
         raise AssertionError(f"single image: {attn.launches - before} kernel "
                              f"launches, expected {layers}")
     print(f"serve single image: {layers} kernel launches")
+    if attn.route_launches != {"mma": attn.launches, "simt": 0}:
+        raise AssertionError(f"serve: K1 launches by route "
+                             f"{attn.route_launches}, expected all "
+                             f"{attn.launches} on mma")
     return attn.launches
 
 
@@ -586,6 +719,7 @@ def phase_model(torch, attn, pe, serve, create_model, load_vit_weights,
                                std=data_std, device=dev)
         k1 = attn.launches
         attn.flash_launches = pe.launches = 0
+        routes = dict(attn.route_launches)
         for _ in range(5):
             pred.predict_array(imgs[:1])
         lat = []
@@ -611,8 +745,15 @@ def phase_model(torch, attn, pe, serve, create_model, load_vit_weights,
         if made != expect:
             raise AssertionError(f"serve {variant}: K1/K4/K5 launches {made}, "
                                  f"expected {expect}")
+        by_route = {r: attn.route_launches[r] - routes[r] for r in routes}
+        if by_route != {"mma": made[0] + made[1], "simt": 0}:
+            raise AssertionError(f"serve {variant}: attention launches by "
+                                 f"route {by_route}, expected all on mma")
         if flash:
             launches = made[1:]
+        if variant == "fused":
+            profile(torch, lambda: pred.predict_array(imgs),
+                    "fused serve bucket-64 forward")
     return launches
 
 
@@ -656,6 +797,7 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
     state = trainer.init_state(train.steps_per_epoch())
     batches = iter(train)
     attn.launches = attn.bwd_launches = 0
+    attn.route_launches.update(mma=0, simt=0)
     for i in range(steps):
         before = (attn.launches, attn.bwd_launches)
         count = state.optimizer.count
@@ -672,6 +814,10 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
             raise AssertionError(f"step {i + 1}: K1/K2 launches {made}, "
                                  f"expected {layers} each")
     launches = (attn.launches, attn.bwd_launches)
+    if attn.route_launches != {"mma": sum(launches), "simt": 0}:
+        raise AssertionError(f"train: K1/K2 launches by route "
+                             f"{attn.route_launches}, expected all "
+                             f"{sum(launches)} on mma")
     batches.close()
     out = trainer.evaluate(val)
     if not (np.isfinite(out["val_loss"]) and 0 <= out["val_acc"] <= 1):
@@ -784,22 +930,25 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
             if flash and b == 64:
                 launches = made
             if variant == "fused" or (flash and b == 64):
-                profile_step(torch, trainer, state, batch, variant)
+                profile(torch, lambda: trainer.train_step(state, batch),
+                        f"{variant} batch-{b} step")
             del trainer, state, batch
             torch.cuda.empty_cache()
     return launches
 
 
-def profile_step(torch, trainer, state, batch, variant: str):
-    """Device time by kernel of one train step, and the device's busy share
-    of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, fn, label: str):
+    """Device time by kernel of one ``fn()`` (a train step or a serve
+    forward), and the device's busy share of its wall time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    torch.cuda.synchronize(trainer.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize(trainer.device)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: a user annotation (the optimizer's step range) spans
     # kernels that are counted on their own
@@ -807,9 +956,8 @@ def profile_step(torch, trainer, state, batch, variant: str):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profile, one {variant} batch-{batch['image'].shape[0]} step: wall "
-          f"{wall_ms:.3f} ms (profiler "
-          f"on), device kernels {device_ms:.3f} ms, busy share "
+    print(f"profile, one {label}: wall {wall_ms:.3f} ms (profiler on), "
+          f"device kernels {device_ms:.3f} ms, busy share "
           f"{device_ms / wall_ms:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
@@ -904,6 +1052,9 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + source,
+        "device_routes": ({"bfloat16": "simt", "float32": "simt"}
+                          if key == "K5" else
+                          {"bfloat16": "mma", "float32": "simt"}),
         "replaces": ref + replaces, "launches": by_path[main_path],
         "launches_by_path": by_path, **stats[key]}
         for key, name, source, replaces, by_path, main_path in kernels]}))

@@ -328,27 +328,119 @@ def test_flash_takes_the_models_slab_views():
                                atol=0, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c,heads,dtype", [
+# --- the two device routes ----------------------------------------------------
+
+H100_SMEM_OPTIN = 232448  # bytes one block may opt in to on an H100
+# the bf16 shape sweep of chip_smoke.py: (B 1, two heads) at every N and D
+SWEEP = [(n, d) for d in (32, 64, 128) for n in (1, 16, 67, 197, 257, 577)]
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 128, "mma"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_kernel_route_by_dtype(dtype, d, route):
+    """bf16 takes the tensor-core route, f32 the SIMT route, at every head
+    dim the kernels take."""
+    assert port.kernel_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d,error", [
+    (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
+    (torch.bfloat16, 16, ValueError), (torch.bfloat16, 80, ValueError),
+    (torch.float32, 256, ValueError),
+])
+def test_kernel_route_raises_outside_the_kernels(dtype, d, error):
+    with pytest.raises(error):
+        port.kernel_route(dtype, d)
+
+
+@pytest.mark.parametrize("n,d", SWEEP)
+@pytest.mark.parametrize("backward", [False, True])
+def test_mma_route_fits_shared_memory(n, d, backward):
+    """The mma route stages its two head operands of all N rows (N rounded
+    up to 16, at least 64) at a pitch of D + 8 bf16, plus three f32
+    statistics a row in the backward's pass 2: every sweep shape fits an
+    H100 block's 227 KB except N 577 at D 128, which the wrappers refuse."""
+    rows = max(-(-n // 16) * 16, 64)
+    need = port.kernel_smem_bytes("mma", backward, n, d)
+    assert need == 2 * rows * (d + 8) * 2 + (12 * rows if backward else 0)
+    assert (need > H100_SMEM_OPTIN) == ((n, d) == (577, 128))
+
+
+def test_smem_at_vit_l_shapes():
+    """N 197, D 64: the mma route needs 59,904 bytes forward and 62,400
+    backward (the C functions' values on an H100); the f32 SIMT route keeps
+    its D + 2 pitch and per-warp score rows."""
+    assert port.kernel_smem_bytes("mma", False, 197, 64) == 59904
+    assert port.kernel_smem_bytes("mma", True, 197, 64) == 62400
+    assert port.kernel_smem_bytes("simt", False, 197, 64) == (
+        2 * 197 * 66 * 4 + 4 * 197 * 4)
+    assert port.kernel_smem_bytes("simt", True, 197, 64) == (
+        2 * 197 * 66 * 4 + 3 * 197 * 4 + 8 * 197 * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_count_no_route(dtype):
+    """The plain versions on the CPU launch nothing: no route counts."""
+    x = torch.from_numpy(_slab(1, 9, 64, seed=35)).to(dtype)
+    g = torch.from_numpy(_slab(1, 9, 64, seed=36)[..., :64]).to(dtype)
+    before = dict(port.route_launches)
+    port.slab_attention_forward(x, 4)
+    port.slab_attention_backward(x, g, 4)
+    port.packed_attention_forward(*x.split(64, -1), 4)
+    assert port.route_launches == before
+
+
+def _on_route(dtype, launches, run):
+    """run() on the card; its launches must all take the dtype's route."""
+    want = port.kernel_route(dtype, 64)
+    before = dict(port.route_launches)
+    out = run()
+    torch.cuda.synchronize()
+    assert {r: port.route_launches[r] - before[r] for r in before} == {
+        r: launches if r == want else 0 for r in before}
+    return out
+
+
+_GPU_CASES = [
     (64, 197, 1024, 16, torch.bfloat16),
     (2, 67, 160, 5, torch.float32),
-])
+    *((1, n, 2 * d, 2, torch.bfloat16) for n, d in SWEEP),
+]
+
+
+def _fits(n, c, heads, dtype, backward):
+    route = port.kernel_route(dtype, c // heads)
+    return port.kernel_smem_bytes(route, backward, n, c // heads) <= (
+        H100_SMEM_OPTIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads,dtype", _GPU_CASES)
 def test_three_operand_kernels_match_plain_on_gpu(require_cuda, b, n, c, heads,
                                                  dtype):
     """K3 forward and backward, and K4 on the views of a QKV slab, against
-    their plain versions on the card (bounds as for K1 and K2)."""
+    their plain versions on the card (bounds as for K1 and K2), each launch
+    on its dtype's route; a shape past shared memory raises."""
     tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
            else dict(atol=1e-4, rtol=1e-4))
     q, k, v, g = (torch.from_numpy(x).to("cuda", dtype)
                   for x in _three((b, n, c), seed=34, count=4))
-    before = (port.packed_launches, port.packed_bwd_launches,
-              port.flash_launches)
-    out = port.packed_attention_forward(q, k, v, heads)
-    grads = port.packed_attention_backward(q, k, v, g, heads)
     slab = torch.cat([q, k, v], -1)
     views = slab.view(b, n, 3, heads, c // heads).unbind(2)
-    flash = port.flash_attention_forward(*views)
-    torch.cuda.synchronize()
+    if not _fits(n, c, heads, dtype, backward=False):
+        with pytest.raises(ValueError, match="shared memory"):
+            port.flash_attention_forward(*views)
+        return
+    before = (port.packed_launches, port.packed_bwd_launches,
+              port.flash_launches)
+    out = _on_route(dtype, 1, lambda: port.packed_attention_forward(
+        q, k, v, heads))
+    grads = _on_route(dtype, 1, lambda: port.packed_attention_backward(
+        q, k, v, g, heads))
+    flash = _on_route(dtype, 1, lambda: port.flash_attention_forward(*views))
     assert (port.packed_launches, port.packed_bwd_launches,
             port.flash_launches) == tuple(x + 1 for x in before)
     torch.testing.assert_close(
@@ -367,18 +459,23 @@ def test_three_operand_kernels_match_plain_on_gpu(require_cuda, b, n, c, heads,
     (64, 197, 1024, 16, torch.float32),
     (8, 197, 768, 12, torch.bfloat16),
     (2, 67, 160, 5, torch.float32),
+    *((1, n, 2 * d, 2, torch.bfloat16) for n, d in SWEEP),
 ])
 def test_backward_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads,
                                              dtype):
     """K2 against the plain backward on the card: bf16 rounds P, dS and the
-    output (2^-8 steps), f32 differs by summation order only."""
+    output (2^-8 steps), f32 differs by summation order only; bf16 on the
+    mma route, f32 on the SIMT route; a shape past shared memory raises."""
     tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
            else dict(atol=1e-4, rtol=1e-4))
     x = torch.from_numpy(_slab(b, n, c, seed=11)).to("cuda", dtype)
     g = torch.from_numpy(_slab(b, n, c, seed=12)[..., :c]).to("cuda", dtype)
+    if not _fits(n, c, heads, dtype, backward=True):
+        with pytest.raises(ValueError, match="shared memory"):
+            port.slab_attention_backward(x, g, heads)
+        return
     before = port.bwd_launches
-    out = port.slab_attention_backward(x, g, heads)
-    torch.cuda.synchronize()
+    out = _on_route(dtype, 1, lambda: port.slab_attention_backward(x, g, heads))
     assert port.bwd_launches == before + 1
     torch.testing.assert_close(
         out.float(), port.slab_attention_backward_reference(x, g, heads).float(),
@@ -391,14 +488,18 @@ def test_backward_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads,
     (64, 197, 1024, 16, torch.float32),
     (8, 197, 768, 12, torch.bfloat16),
     (2, 67, 160, 5, torch.float32),
+    *((1, n, 2 * d, 2, torch.bfloat16) for n, d in SWEEP),
 ])
 def test_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads, dtype):
     tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
            else dict(atol=1e-4, rtol=1e-4))
     x = torch.from_numpy(_slab(b, n, c, seed=3)).to("cuda", dtype)
+    if not _fits(n, c, heads, dtype, backward=False):
+        with pytest.raises(ValueError, match="shared memory"):
+            port.slab_attention(x, heads)
+        return
     before = port.launches
-    out = port.slab_attention(x, heads)
-    torch.cuda.synchronize()
+    out = _on_route(dtype, 1, lambda: port.slab_attention(x, heads))
     assert port.launches == before + 1
     torch.testing.assert_close(out.float(),
                                port.slab_attention_reference(x, heads).float(),

@@ -1,7 +1,9 @@
 // Helpers shared by the attention kernels (slab_attention_fwd.cu: K1, K3's
 // forward and K4; slab_attention_bwd.cu: K2 and K3's backward): element pairs,
-// rounding to the input type, warp reductions and the padded shared-memory row
-// pitch.
+// warp reductions and the padded shared-memory row pitch of the f32 SIMT
+// route (its kernels are templates on the element type, instantiated for
+// float only); cp.async staging, ldmatrix, mma.sync and the fragment layouts
+// of the bf16 tensor-core route (namespace tic::mma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,26 +23,14 @@ template <>
 struct Pair<float> {
   using type = float2;
 };
-template <>
-struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-};
 
 __device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
 
 template <typename T>
 __device__ __forceinline__ typename Pair<T>::type from_floats(float a, float b);
 template <>
 __device__ __forceinline__ float2 from_floats<float>(float a, float b) {
   return make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat162 from_floats<__nv_bfloat16>(float a,
-                                                                     float b) {
-  return __floats2bfloat162_rn(a, b);
 }
 
 // Rounds an f32 value to the input type and back (round to nearest even).
@@ -49,10 +39,6 @@ __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -118,5 +104,229 @@ __device__ __forceinline__ float dot_row(const float (&x)[D], const T* y) {
   }
   return s;
 }
+
+// --- the bf16 route: mma.sync m16n8k16 on the tensor cores ------------------
+//
+// Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for
+// lane = 4 * g + t (g = lane / 4 the group, t = lane % 4 its place in the quad):
+// - A (16 x 16, row-major), four 32-bit registers of bf16 pairs: a0 = (row g,
+//   cols 2t, 2t+1), a1 = (row g+8, same cols), a2 = (row g, cols 2t+8, 2t+9),
+//   a3 = (row g+8, cols 2t+8, 2t+9);
+// - B (16 x 8, "col": each of the 8 columns contiguous along k), two
+//   registers: b0 = (k 2t, 2t+1 of column g), b1 = (k 2t+8, 2t+9 of column g);
+// - C (16 x 8, f32), four floats: c0, c1 = (row g, cols 2t, 2t+1), c2, c3 =
+//   (row g+8, cols 2t, 2t+1).
+// Two C tiles side by side (cols 0-7 and 8-15) rounded to bf16 pairs are
+// exactly an A fragment (a0 = C0[0..1], a1 = C0[2..3], a2 = C1[0..1], a3 =
+// C1[2..3]), so P and dS go from one product to the next in registers.
+// A row of a 16-row strip lives on the four lanes of a quad: a row reduction
+// is two shfl_xor (1 and 2).
+namespace mma {
+
+constexpr int kRows = 16;  // rows of a warp's strip (the m of m16n8k16)
+
+// Shared-memory row pitch, in elements, of a staged head row: D + 8 makes it
+// an odd number of 16-byte chunks mod 8 (D 32, 64, 128: 5, 9, 17 chunks), so
+// the eight row addresses of an ldmatrix 8x8 read fall on eight different
+// groups of four banks, free of conflicts.
+template <int D>
+constexpr int kPitch = D + 8;
+
+// Rows staged for N keys or queries: N rounded up to whole 16-row chunks (the
+// rows past N are zero-filled), and at least 64, so that the block's output
+// strips (up to 4 warps x 16 rows) can be staged in the same memory.
+__host__ __device__ inline int staged_rows(int n) {
+  const int r = (n + kRows - 1) / kRows * kRows;
+  return r < 64 ? 64 : r;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; fills zeros where !valid (the
+// source is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stages D columns of `n` rows, `ld` elements apart, into `rows` shared rows at
+// pitch kPitch<D> with 16-byte cp.async copies by the whole block (`threads`
+// of them); rows at or past n are zeros. Commits nothing.
+template <int D>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            int n, int rows, size_t ld, int threads) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < rows * kChunks; i += threads) {
+    const int r = i / kChunks;
+    const int ch = i - r * kChunks;
+    const bool valid = r < n;
+    cp_async16(dst + r * kPitch<D> + 8 * ch, src + (valid ? r * ld + 8 * ch : 0), valid);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b on the tensor cores, bf16 in, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// A fragments of a warp's 16-row strip of a head operand, read straight from
+// device memory: rows row0 ... row0 + 15 (`ld` elements apart, zeros at or
+// past n), D columns as D / 16 k-steps.
+template <int D>
+__device__ __forceinline__ void load_a_strip(unsigned (&a)[D / 16][4],
+                                             const __nv_bfloat16* src, int row0, int n,
+                                             size_t ld, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = 16 * ks + 2 * t;
+    a[ks][0] = r0 < n ? *reinterpret_cast<const unsigned*>(src + r0 * ld + c) : 0u;
+    a[ks][1] = r1 < n ? *reinterpret_cast<const unsigned*>(src + r1 * ld + c) : 0u;
+    a[ks][2] = r0 < n ? *reinterpret_cast<const unsigned*>(src + r0 * ld + c + 8) : 0u;
+    a[ks][3] = r1 < n ? *reinterpret_cast<const unsigned*>(src + r1 * ld + c + 8) : 0u;
+  }
+}
+
+// acc (16 x 16, two C tiles) = A (16 x D strip in registers) times the
+// transpose of the 16 staged rows j0 ... j0 + 15 (D columns each): the rows are
+// the B operand's columns (S = Q K^T with K rows, dP = g V^T with V rows).
+template <int D>
+__device__ __forceinline__ void strip_times_rows_t(float (&acc)[2][4],
+                                                   const unsigned (&a)[D / 16][4],
+                                                   const __nv_bfloat16* rows, int j0,
+                                                   int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // matrices: (rows j0..+7, k 0..7), (j0..+7, k 8..15), (j0+8.., k 0..7),
+  // (j0+8.., k 8..15) of the k-step
+  const __nv_bfloat16* base =
+      rows + (j0 + (lane & 7) + ((lane >> 4) << 3)) * kPitch<D> + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    unsigned b[4];
+    ldmatrix_x4(b, base + 16 * ks);
+    mma_bf16(acc[0], a[ks], b[0], b[1]);
+    mma_bf16(acc[1], a[ks], b[2], b[3]);
+  }
+}
+
+// out (16 x D, D / 8 C tiles) += A (16 x 16 in registers) times the 16 staged
+// rows j0 ... j0 + 15 as they are (O += P V, dQ += dS K, dV += P^T g, ...).
+template <int D>
+__device__ __forceinline__ void accumulate_rows(float (&out)[D / 8][4],
+                                                const unsigned (&a)[4],
+                                                const __nv_bfloat16* rows, int j0,
+                                                int lane) {
+  // matrices, transposed: (rows j0..+7, cols c..c+7), (j0+8.., c..), (j0..,
+  // c+8..), (j0+8.., c+8..) for each 16 columns c
+  const __nv_bfloat16* base =
+      rows + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch<D> + (lane >> 4) * 8;
+#pragma unroll
+  for (int cs = 0; cs < D / 16; ++cs) {
+    unsigned b[4];
+    ldmatrix_x4_trans(b, base + 16 * cs);
+    mma_bf16(out[2 * cs], a, b[0], b[1]);
+    mma_bf16(out[2 * cs + 1], a, b[2], b[3]);
+  }
+}
+
+// Writes scale * acc, a warp's 16 x D strip, to rows row0 ... of dst (`ld`
+// elements apart, only rows < n) through the warp's own 16 rows of shared
+// memory at `stage` (pitch kPitch<D>), as 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_strip(__nv_bfloat16* dst, size_t ld, int row0, int n,
+                                            const float (&acc)[D / 8][4], float scale,
+                                            __nv_bfloat16* stage, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<unsigned*>(stage + g * kPitch<D> + 8 * j + 2 * t) =
+        pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
+    *reinterpret_cast<unsigned*>(stage + (g + 8) * kPitch<D> + 8 * j + 2 * t) =
+        pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+  for (int i = lane; i < kRows * kChunks; i += 32) {
+    const int r = i / kChunks;
+    const int ch = i - r * kChunks;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ld + 8 * ch) =
+          *reinterpret_cast<const uint4*>(stage + r * kPitch<D> + 8 * ch);
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Scales a 16 x 16 score tile (two C tiles, columns j0 ... j0 + 15) by
+// `scale` (D^-1/2, times log2(e) for exp2), the multiply kept out of FMA contraction (both backward passes
+// then round it alike), and sets columns at or past n to -inf.
+__device__ __forceinline__ void scale_and_mask(float (&s)[2][4], float scale, int j0,
+                                               int n, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = j0 + 8 * j + 2 * (lane % 4) + (e & 1);
+      s[j][e] = col < n ? __fmul_rn(s[j][e], scale) : -INFINITY;
+    }
+}
+
+// exp2(x) (kExp2, scores scaled by log2(e) beforehand) or exp(x).
+template <bool kExp2>
+__device__ __forceinline__ float exp_base(float x) {
+  return kExp2 ? exp2f(x) : expf(x);
+}
+
+// exp_base(x - m) with m a running max that may still be -inf (no finite
+// value seen yet): then every x is -inf too and the result is 0, not NaN.
+template <bool kExp2>
+__device__ __forceinline__ float exp_below(float x, float m) {
+  return exp_base<kExp2>(x - (m == -INFINITY ? 0.f : m));
+}
+
+}  // namespace mma
 
 }  // namespace tic

@@ -9,35 +9,53 @@
 // - _attention_kernel (K4): (B, N, H, D) q, k, v (attention_impl='flash';
 //   the TPU kernel pads N to 256 with -inf keys and takes heads in groups of
 //   4, both TPU layout matters: here N stays 197 and the grid is K1's).
-// All three are one device kernel over three base pointers q, k, v that share
-// a batch stride and a row stride, head h at elements h*D ... (h+1)*D of a
-// row: the slab is (slab, slab + C, slab + 2C) with row stride 3C, K3's
-// operands and K4's dense (B, N, H, D) tensors are (q, k, v) with row stride C
-// (H*D = C), and the model's K4 views of the slab are the slab's pointers.
-// Per image b and head h:
+// All three are one device kernel per dtype over three base pointers q, k, v
+// that share a batch stride and a row stride, head h at elements h*D ...
+// (h+1)*D of a row: the slab is (slab, slab + C, slab + 2C) with row stride
+// 3C, K3's operands and K4's dense (B, N, H, D) tensors are (q, k, v) with row
+// stride C (H*D = C), and the model's K4 views of the slab are the slab's
+// pointers. Per image b and head h:
 //   S   = Q_h K_h^T * D^-1/2      in f32
-//   P   = softmax(S)               f32, max-subtracted, exact divide
+//   P   = softmax(S)               f32, max-subtracted, normalised
 //   P   is rounded to the input type, as the TPU kernel casts P before PV
 //   O_h = P V_h                    f32 accumulation, written to out[b, :, h*D:(h+1)*D]
 // of a contiguous (B, N, C) output. P never reaches device memory.
 //
-// Design. Grid (ceil(N / kBlockQ), H, B), kBlockQ = 64 query rows, 128 threads.
-// The block stages K_h and V_h for all N keys in dynamic shared memory, read
-// from their rows by stride (no split copies). Each warp then takes one query
-// row at a time: q in registers, lanes over keys for the scores, warp
-// shuffles for the max and the sum, lanes over D for PV. The ragged N edge is
-// handled by loop bounds; nothing is padded in device memory.
+// Two routes, one per dtype, both written here; the C entry points pick by
+// the dtype code and a launch the route cannot take fails, nothing falls back.
 //
-// What bounds it on this card. At ViT-L serve shapes (N 197, D 64, bf16) the
-// kernel is compute-bound on SIMT FMAs and the shared-memory loads that feed
-// them: there is no tensor-core MMA yet, and every FMA of QK^T and PV takes
-// one operand from shared memory. Device-memory traffic is small: a block
-// reads K_h and V_h once (about 50 KB in bf16) and each q and o row once.
-// What the design does about it: q stays in registers so the score loop
-// loads only K; K and V are read in pairs (bf16x2 or float2), which halves
-// the shared-memory instructions; rows are padded by two elements so that
-// those pair loads are free of bank conflicts; one K/V staging serves 64
-// query rows. Tensor-core MMA (mma.sync, then wgmma fed by TMA) is later work.
+// bf16: attention_fwd_mma_kernel, on the tensor cores (mma.sync m16n8k16,
+// bf16 in, f32 accumulation). Grid (ceil(N / 64), H, B), 4 warps, each owning
+// a 16-row query strip. (32 or 16 rows a block, for more blocks on a small
+// launch, measured no faster at ViT-L bucket 1 and 1.5x / 2.9x slower at
+// batch 64: tools/attn_fwd_study.py, PERF.md.) The block stages K_h and V_h of
+// all N keys in shared memory with 16-byte cp.async copies read by row stride
+// (rows past N zero-filled, pitch D + 8 for conflict-free ldmatrix); V's copy
+// is a second group that lands while the first sweep runs. The warp's Q strip
+// goes straight from device memory into A fragments and stays in registers.
+// Sweep 1 over 16-key chunks: S = Q K^T (K rows as the B operand's columns,
+// ldmatrix), scaled by D^-1/2 log2(e) so that exp2 serves, keys >= N set to
+// -inf, a running max and rescaled sum per lane, combined over the quad at
+// the end. Sweep 2 recomputes S, forms P = exp2(S - m) * (1 / l) in f32,
+// rounds it to bf16 and re-packs the C fragments as A fragments in registers,
+// and accumulates O += P V (V by ldmatrix.trans). O leaves through shared
+// memory as 16-byte stores. The ragged N edge is masked in the kernel;
+// nothing is padded in device memory. Three products where the bound counts
+// two (S is recomputed rather than held: 16 x N f32 a warp would not fit in
+// registers at D 128).
+//
+// f32: attention_fwd_kernel, SIMT (tensor cores take f32 only as TF32, about
+// three decimal digits, too coarse for the f32 bound). Each warp takes one
+// query row at a time: q in registers, lanes over keys for the scores, warp
+// shuffles for the max and the sum, lanes over D for PV; K and V staged at a
+// D + 2 pitch and read in float2 pairs, free of bank conflicts.
+//
+// What bounds it on this card. At ViT-L shapes (N 197, D 64) the bound is
+// device-memory bytes (each q, k, v, o row once: 0.031 ms at batch 64 bf16);
+// the bf16 kernel's own pace is set by the softmax between the products (an
+// exp2 per score, twice), the staging latency before the first product and
+// the recomputed S, not by the MMA issue rate. The f32 kernel is bound by
+// SIMT FMAs and the shared-memory loads that feed them.
 #include "slab_attention_common.cuh"
 
 namespace {
@@ -171,45 +189,177 @@ int launch(const T* q, const T* k, const T* v, long long batch_stride, int row_s
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// --- bf16: the tensor-core route ---------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory: K_h and V_h as staged_rows(N) rows of kPitch<D> elements.
+template <int D>
+size_t mma_smem_bytes(int n) {
+  return 2 * static_cast<size_t>(mma::staged_rows(n)) * mma::kPitch<D> * sizeof(bf16);
+}
+
+// kExp2: exp2 of scores scaled by D^-1/2 log2(e) (the model's route), or exp
+// of scores scaled by D^-1/2 (a measurement variant, tic_attention_fwd_variant).
+template <int D, int kBlockWarps, bool kExp2>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+    attention_fwd_mma_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
+                             const bf16* __restrict__ v_in, long long batch_stride,
+                             int row_stride, bf16* __restrict__ out, int n, int num_heads,
+                             float score_scale) {
+  using namespace mma;
+  constexpr int P = kPitch<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = staged_rows(n);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + static_cast<size_t>(rows) * P;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t head = static_cast<size_t>(b) * batch_stride + h * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * kBlockWarps + warp) * kRows;
+  const bool active = row0 < n;  // a strip wholly past N only helps stage
+
+  stage_async<D>(ks, k_in + head, n, rows, row_stride, kBlockWarps * 32);
+  cp_async_commit();
+  stage_async<D>(vs, v_in + head, n, rows, row_stride, kBlockWarps * 32);
+  cp_async_commit();
+  unsigned qa[D / 16][4];
+  if (active) load_a_strip<D>(qa, q_in + head, row0, n, row_stride, lane);
+  cp_async_wait<1>();  // K has landed; V may still be in flight
+  __syncthreads();
+
+  // Sweep 1: the row max m and sum l, per lane over its columns, rows g and
+  // g + 8 of the strip, then over the quad.
+  const int chunks = (n + kRows - 1) / kRows;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  if (active) {
+    for (int kc = 0; kc < chunks; ++kc) {
+      float s[2][4];
+      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+      scale_and_mask(s, score_scale, kRows * kc, n, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                           fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+        l[r] = l[r] * exp_below<kExp2>(m[r], mn) + exp_below<kExp2>(s[0][2 * r], mn) +
+               exp_below<kExp2>(s[0][2 * r + 1], mn) + exp_below<kExp2>(s[1][2 * r], mn) +
+               exp_below<kExp2>(s[1][2 * r + 1], mn);
+        m[r] = mn;
+      }
+    }
+  }
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float row_max = quad_max(m[r]);
+    inv_l[r] = 1.f / quad_sum(l[r] * exp_below<kExp2>(m[r], row_max));
+    m[r] = row_max;
+  }
+
+  // Sweep 2: P = exp2(S - m) / l in f32, rounded to bf16 as an A fragment,
+  // then O += P V.
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  if (active) {
+    for (int kc = 0; kc < chunks; ++kc) {
+      float s[2][4];
+      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+      scale_and_mask(s, score_scale, kRows * kc, n, lane);
+      unsigned pa[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]) * inv_l[r],
+                                    exp_base<kExp2>(s[j][2 * r + 1] - m[r]) * inv_l[r]);
+      accumulate_rows<D>(o, pa, vs, kRows * kc, lane);
+    }
+  }
+  __syncthreads();  // every warp is done with K and V: stage O over them
+  if (active)
+    store_strip<D>(out + (static_cast<size_t>(b) * n) * num_heads * D + h * D,
+                   static_cast<size_t>(num_heads) * D, row0, n, o, 1.f,
+                   ks + warp * kRows * P, lane);
+}
+
+template <int D, int kBlockWarps, bool kExp2 = true>
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, long long batch_stride,
+               int row_stride, void* out, int b, int n, int num_heads, float scale,
+               cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<D>(n);
+  auto kernel = attention_fwd_mma_kernel<D, kBlockWarps, kExp2>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kRowsPerBlock = kBlockWarps * mma::kRows;
+  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, b);
+  kernel<<<grid, kBlockWarps * 32, smem, stream>>>(q, k, v, batch_stride, row_stride,
+                                                   static_cast<bf16*>(out), n, num_heads,
+                                                   kExp2 ? scale * 1.4426950408889634f : scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --- dispatch by dtype (route) and head dim ----------------------------------
+
 int dispatch_d(const void* q, const void* k, const void* v, long long batch_stride,
-               int row_stride, void* out, int b, int n, int num_heads, int d,
+               int row_stride, void* out, int b, int n, int num_heads, int d, int dtype,
                float scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  switch (d) {
-    case 32: return launch<T, 32>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
-    case 64: return launch<T, 64>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
-    case 128: return launch<T, 128>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const float* qt = static_cast<const float*>(q);
+    const float* kt = static_cast<const float*>(k);
+    const float* vt = static_cast<const float*>(v);
+    switch (d) {
+      case 32: return launch<float, 32>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      case 64: return launch<float, 64>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      case 128: return launch<float, 128>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if (dtype == 1) {
+    const bf16* qt = static_cast<const bf16*>(q);
+    const bf16* kt = static_cast<const bf16*>(k);
+    const bf16* vt = static_cast<const bf16*>(v);
+    switch (d) {
+      case 32: return launch_mma<32, 4>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      case 64: return launch_mma<64, 4>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      case 128: return launch_mma<128, 4>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int dispatch_slab(const void* qkv, void* out, int b, int n, int num_heads, int d,
-                  float scale, cudaStream_t stream) {
-  const T* slab = static_cast<const T*>(qkv);
-  const int c = num_heads * d;
-  return dispatch_d<T>(slab, slab + c, slab + 2 * c, 3LL * n * c, 3 * c, out, b, n,
-                       num_heads, d, scale, stream);
-}
-
-template <typename T>
-size_t smem_for_d(int n, int d) {
-  switch (d) {
-    case 32: return smem_bytes<T, 32>(n);
-    case 64: return smem_bytes<T, 64>(n);
-    case 128: return smem_bytes<T, 128>(n);
-    default: return 0;
+size_t smem_for_d(int n, int d, int dtype) {
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return smem_bytes<float, 32>(n);
+      case 64: return smem_bytes<float, 64>(n);
+      case 128: return smem_bytes<float, 128>(n);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 32: return mma_smem_bytes<32>(n);
+      case 64: return mma_smem_bytes<64>(n);
+      case 128: return mma_smem_bytes<128>(n);
+    }
   }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (SIMT route), 1 = bfloat16 (tensor-core route).
 extern "C" size_t tic_slab_attention_fwd_smem_bytes(int n, int d, int dtype) {
-  return dtype == 0 ? smem_for_d<float>(n, d) : smem_for_d<__nv_bfloat16>(n, d);
+  return smem_for_d(n, d, dtype);
 }
 
 // The most dynamic shared memory one block may opt in to on `device`, or -1.
@@ -226,10 +376,12 @@ extern "C" int tic_max_smem_optin(int device) {
 extern "C" int tic_slab_attention_fwd(const void* qkv, void* out, int b, int n,
                                       int num_heads, int d, int dtype, float scale,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_slab<float>(qkv, out, b, n, num_heads, d, scale, s);
-  if (dtype == 1) return dispatch_slab<__nv_bfloat16>(qkv, out, b, n, num_heads, d, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const size_t size = dtype == 0 ? sizeof(float) : sizeof(bf16);
+  const char* slab = static_cast<const char*>(qkv);
+  const size_t c = static_cast<size_t>(num_heads) * d;
+  return dispatch_d(slab, slab + c * size, slab + 2 * c * size, 3LL * n * c,
+                    static_cast<int>(3 * c), out, b, n, num_heads, d, dtype, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The three-operand form (K3, K4): q, k, v with a shared batch stride and row
@@ -239,12 +391,33 @@ extern "C" int tic_attention_fwd(const void* q, const void* k, const void* v,
                                  long long batch_stride, int row_stride, void* out,
                                  int b, int n, int num_heads, int d, int dtype,
                                  float scale, void* stream) {
+  return dispatch_d(q, k, v, batch_stride, row_stride, out, b, n, num_heads, d, dtype,
+                    scale, static_cast<cudaStream_t>(stream));
+}
+
+// A measurement entry point, on no path of the model: the bf16 forward at
+// D 64 with its block shape and exponential chosen by the caller, `warps`
+// 4, 2 or 1 (64, 32 or 16 query rows a block) and `use_exp2` 1 (exp2 of scores
+// scaled by log2(e), the model's route) or 0 (exp). Arguments as
+// tic_attention_fwd.
+extern "C" int tic_attention_fwd_variant(const void* q, const void* k, const void* v,
+                                         long long batch_stride, int row_stride,
+                                         void* out, int b, int n, int num_heads, int d,
+                                         float scale, int warps, int use_exp2,
+                                         void* stream) {
+  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, batch_stride, row_stride, out, b, n, num_heads, d,
-                             scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, batch_stride, row_stride, out, b, n,
-                                     num_heads, d, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int key = 2 * warps + (use_exp2 ? 1 : 0);
+  switch (key) {
+    case 9: return launch_mma<64, 4, true>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    case 8: return launch_mma<64, 4, false>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    case 5: return launch_mma<64, 2, true>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    case 4: return launch_mma<64, 2, false>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    case 3: return launch_mma<64, 1, true>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    case 2: return launch_mma<64, 1, false>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

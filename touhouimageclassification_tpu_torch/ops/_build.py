@@ -99,6 +99,9 @@ def load_library() -> ctypes.CDLL:
     lib.tic_attention_fwd.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32, i32,
                                       i32, i32, i32, f32, ptr]
     lib.tic_attention_fwd.restype = i32
+    lib.tic_attention_fwd_variant.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32,
+                                              i32, i32, i32, f32, i32, i32, ptr]
+    lib.tic_attention_fwd_variant.restype = i32
     lib.tic_slab_attention_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.tic_slab_attention_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.tic_slab_attention_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -108,6 +111,10 @@ def load_library() -> ctypes.CDLL:
                                       ptr, i64, i32, ptr, i32, i32, i32, i32,
                                       i32, f32, ptr]
     lib.tic_attention_bwd.restype = i32
+    lib.tic_attention_bwd_probes.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr,
+                                             ptr, ptr, i64, i32, ptr, i32, i32,
+                                             i32, i32, f32, ptr, ptr, ptr]
+    lib.tic_attention_bwd_probes.restype = i32
     lib.tic_patch_embed.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                     i32, i32, i32, ptr]
     lib.tic_patch_embed.restype = i32

@@ -26,9 +26,15 @@ launches the kernel or raises:
 - K2 :func:`slab_attention_backward` and K3 :func:`packed_attention_backward`
   launch ``csrc/slab_attention_bwd.cu`` the same way.
 
+Each source has two routes, one per dtype (:func:`kernel_route`): bf16
+runs on the tensor cores (``mma.sync`` fed by ``cp.async``), f32 on SIMT
+FMAs (tensor cores take f32 only as TF32). A launch the route cannot take
+raises; nothing falls back.
+
 ``launches``, ``bwd_launches`` (K1, K2), ``packed_launches``,
-``packed_bwd_launches`` (K3) and ``flash_launches`` (K4) count launches, so a
-run can show that its main path went through the kernels.
+``packed_bwd_launches`` (K3) and ``flash_launches`` (K4) count launches, and
+``route_launches`` counts the same launches by route, so a run can show that
+its main path went through the kernels, and on which route.
 """
 from __future__ import annotations
 
@@ -42,9 +48,14 @@ bwd_launches = 0
 packed_launches = 0
 packed_bwd_launches = 0
 flash_launches = 0
+route_launches = {"mma": 0, "simt": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
 _HEAD_DIMS = (32, 64, 128)
+# Bytes a kernel reads at once: the mma route stages 16-byte chunks with
+# cp.async, the SIMT route reads element pairs (float2).
+_ALIGN = {"mma": 16, "simt": 8}
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -146,40 +157,72 @@ def slab_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
     return torch.cat([x.reshape(b, n, c3 // 3) for x in grads], dim=-1)
 
 
-def _check_heads(name: str, dtype: torch.dtype, c: int, num_heads: int) -> None:
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dtype}")
-    if c % num_heads or c // num_heads not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dims {_HEAD_DIMS}; C={c} "
-                         f"with {num_heads} heads gives {c / num_heads:g}")
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The device route the attention kernels take for ``dtype``: ``'mma'``
+    (bf16, tensor cores) or ``'simt'`` (f32). Raises for any other dtype or
+    a head dim outside ``(32, 64, 128)``."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"attention kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"attention kernels take head dims {_HEAD_DIMS}, got "
+                         f"{head_dim}")
+    return _ROUTES[dtype]
 
 
-def _check_kernel_args(name: str, x: torch.Tensor, num_heads: int) -> None:
+def kernel_smem_bytes(route: str, backward: bool, n: int, d: int) -> int:
+    """Dynamic shared memory one block of the forward (or the larger pass of
+    the backward) needs at N rows and head dim D; the same sums as the C
+    functions ``tic_slab_attention_{fwd,bwd}_smem_bytes``.
+
+    - mma: K and V (backward pass 2: Q and g) of all N rows in bf16 at a
+      pitch of D + 8, N rounded up to 16 and at least 64; pass 2 adds three
+      f32 statistics per row;
+    - simt: two head operands in f32 at a pitch of D + 2, plus f32 rows of
+      scores per warp (forward one, backward two, and pass 2's statistics)."""
+    if route == "mma":
+        rows = max(-(-n // 16) * 16, 64)
+        return 2 * rows * (d + 8) * 2 + (3 * rows * 4 if backward else 0)
+    operands = 2 * n * (d + 2) * 4
+    return operands + (3 * n * 4 + 4 * 2 * n * 4 if backward else 4 * n * 4)
+
+
+def _check_heads(name: str, dtype: torch.dtype, c: int, num_heads: int) -> str:
+    if c % num_heads:
+        raise ValueError(f"{name}: C={c} does not split into {num_heads} heads")
+    return kernel_route(dtype, c // num_heads)
+
+
+def _check_kernel_args(name: str, x: torch.Tensor, num_heads: int) -> str:
     if x.dim() != 3 or x.shape[-1] % 3:
         raise ValueError(f"{name} expects a (B, N, 3C) slab, got "
                          f"{tuple(x.shape)}")
-    _check_heads(name, x.dtype, x.shape[-1] // 3, num_heads)
-    _check_pairs(name, x)
+    route = _check_heads(name, x.dtype, x.shape[-1] // 3, num_heads)
+    _check_dense(name, x, route)
+    return route
 
 
-def _check_pairs(name: str, x: torch.Tensor) -> None:
+def _check_dense(name: str, x: torch.Tensor, route: str) -> None:
     if not x.is_contiguous():
         raise ValueError(f"{name} kernel needs contiguous operands")
-    _check_aligned(name, x)
+    _check_aligned(name, x, route)
 
 
-def _check_aligned(name: str, x: torch.Tensor) -> None:
-    if x.data_ptr() % (2 * x.element_size()):
-        raise ValueError(f"{name} kernel reads element pairs: operands must "
-                         "start on a pair boundary")
+def _check_aligned(name: str, x: torch.Tensor, route: str) -> None:
+    if x.data_ptr() % _ALIGN[route]:
+        raise ValueError(f"{name} kernel ({route} route) reads "
+                         f"{_ALIGN[route]}-byte chunks: operands must start on "
+                         "such a boundary")
 
 
-def _check_smem(name: str, lib, need: int, x: torch.Tensor, what: str) -> None:
+def _check_smem(name: str, lib, route: str, backward: bool, x: torch.Tensor,
+                d: int, what: str) -> None:
+    need = kernel_smem_bytes(route, backward, x.shape[1], d)
     limit = lib.tic_max_smem_optin(x.device.index)
     if need > limit:
-        raise ValueError(f"{name} kernel keeps {what} of all {x.shape[1]} rows "
-                         f"in shared memory: {need} bytes needed, {limit} "
-                         "available")
+        raise ValueError(f"{name} kernel ({route} route) keeps {what} of all "
+                         f"{x.shape[1]} rows in shared memory: {need} bytes "
+                         f"needed, {limit} available")
 
 
 def _require_cuda(name: str, x: torch.Tensor) -> None:
@@ -196,16 +239,14 @@ def slab_attention_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return slab_attention_reference(qkv, num_heads)
     _require_cuda("slab_attention", qkv)
-    _check_kernel_args("slab_attention", qkv, num_heads)
+    route = _check_kernel_args("slab_attention", qkv, num_heads)
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
     code = _DTYPE_CODES[qkv.dtype]
     lib = load_library()
     with torch.cuda.device(qkv.device):
-        _check_smem("slab_attention", lib,
-                    lib.tic_slab_attention_fwd_smem_bytes(n, d, code), qkv,
-                    "K and V")
+        _check_smem("slab_attention", lib, route, False, qkv, d, "K and V")
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.tic_slab_attention_fwd(qkv.data_ptr(), out.data_ptr(), b, n,
@@ -215,6 +256,7 @@ def slab_attention_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
                            f"error {err} (B={b}, N={n}, H={num_heads}, D={d}, "
                            f"{qkv.dtype})")
     launches += 1
+    route_launches[route] += 1
     return out
 
 
@@ -231,7 +273,7 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return slab_attention_backward_reference(qkv, g, num_heads)
     _require_cuda("slab_attention_backward", qkv)
-    _check_kernel_args("slab_attention_backward", qkv, num_heads)
+    route = _check_kernel_args("slab_attention_backward", qkv, num_heads)
     b, n, c3 = qkv.shape
     c = c3 // 3
     if g.device != qkv.device or g.dtype != qkv.dtype or g.shape != (b, n, c):
@@ -239,13 +281,12 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
                          f"{qkv.dtype} on {qkv.device}, got {tuple(g.shape)} "
                          f"{g.dtype} on {g.device}")
     g = g.contiguous()
-    _check_pairs("slab_attention_backward", g)
+    _check_dense("slab_attention_backward", g, route)
     d = c // num_heads
     code = _DTYPE_CODES[qkv.dtype]
     lib = load_library()
     with torch.cuda.device(qkv.device):
-        _check_smem("slab_attention_backward", lib,
-                    lib.tic_slab_attention_bwd_smem_bytes(n, d, code), qkv,
+        _check_smem("slab_attention_backward", lib, route, True, qkv, d,
                     "two head operands")
         dqkv = torch.empty_like(qkv)
         stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
@@ -260,6 +301,7 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
                            f"CUDA error {err} (B={b}, N={n}, H={num_heads}, "
                            f"D={d}, {qkv.dtype})")
     bwd_launches += 1
+    route_launches[route] += 1
     return dqkv
 
 
@@ -295,10 +337,11 @@ def slab_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _rows(name: str, xs: tuple[torch.Tensor, ...], num_heads: int):
     """Checks q, k, v (and g) of one shape (B, N, C) or (B, N, H, D) for the
     three-operand kernels; returns them with their shared batch and row
-    strides. Each row's C = H*D elements must be dense, and the strides
-    shared and even (the kernels read element pairs); views that are not,
-    such as a transposed tensor, are copied to contiguous ones. The model's
-    q, k, v views of the (B, N, 3C) slab pass as they are, row stride 3C."""
+    strides, and the route. Each row's C = H*D elements must be dense, and
+    the strides shared and whole multiples of the route's read (16 bytes for
+    mma, an element pair for simt); views that are not, such as a
+    transposed tensor, are copied to contiguous ones. The model's q, k, v
+    views of the (B, N, 3C) slab pass as they are, row stride 3C."""
     x = xs[0]
     if any(y.shape != x.shape or y.dtype != x.dtype or y.device != x.device
            for y in xs) or x.dim() not in (3, 4):
@@ -308,30 +351,30 @@ def _rows(name: str, xs: tuple[torch.Tensor, ...], num_heads: int):
                                      for y in xs))
     b, n = x.shape[:2]
     c = x[0, 0].numel()
-    _check_heads(name, x.dtype, c, num_heads)
+    route = _check_heads(name, x.dtype, c, num_heads)
+    unit = _ALIGN[route] // x.element_size()
 
     def dense(y):
         return y.stride(-1) == 1 and (y.dim() == 3 or y.stride(2) == y.shape[3])
 
     if (len({y.stride()[:2] for y in xs}) != 1 or not all(map(dense, xs))
-            or x.stride(0) % 2 or x.stride(1) % 2):
+            or x.stride(0) % unit or x.stride(1) % unit):
         xs = tuple(y.contiguous() for y in xs)
     for y in xs:
-        _check_aligned(name, y)
-    return xs, xs[0].stride(0), xs[0].stride(1), b, n, c
+        _check_aligned(name, y, route)
+    return xs, xs[0].stride(0), xs[0].stride(1), b, n, c, route
 
 
 def _attention_forward(name: str, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Launches the forward kernel on three operands -> (B, N, C)."""
-    (q, k, v), batch_stride, row_stride, b, n, c = _rows(name, (q, k, v),
-                                                         num_heads)
+    (q, k, v), batch_stride, row_stride, b, n, c, route = _rows(
+        name, (q, k, v), num_heads)
     d = c // num_heads
     code = _DTYPE_CODES[q.dtype]
     lib = load_library()
     with torch.cuda.device(q.device):
-        _check_smem(name, lib, lib.tic_slab_attention_fwd_smem_bytes(n, d, code),
-                    q, "K and V")
+        _check_smem(name, lib, route, False, q, d, "K and V")
         out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.tic_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -340,6 +383,7 @@ def _attention_forward(name: str, q: torch.Tensor, k: torch.Tensor,
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} "
                            f"(B={b}, N={n}, H={num_heads}, D={d}, {q.dtype})")
+    route_launches[route] += 1
     return out
 
 
@@ -377,19 +421,19 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 3:
         raise ValueError(f"{name} expects (B, N, C) operands, got "
                          f"{tuple(q.shape)}")
-    (q, k, v), in_batch, in_row, b, n, c = _rows(name, (q, k, v), num_heads)
+    (q, k, v), in_batch, in_row, b, n, c, route = _rows(name, (q, k, v),
+                                                        num_heads)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError(f"{name}: g must be {tuple(q.shape)} {q.dtype} on "
                          f"{q.device}, got {tuple(g.shape)} {g.dtype} on "
                          f"{g.device}")
     g = g.contiguous()
-    _check_pairs(name, g)
+    _check_dense(name, g, route)
     d = c // num_heads
     code = _DTYPE_CODES[q.dtype]
     lib = load_library()
     with torch.cuda.device(q.device):
-        _check_smem(name, lib, lib.tic_slab_attention_bwd_smem_bytes(n, d, code),
-                    q, "two head operands")
+        _check_smem(name, lib, route, True, q, d, "two head operands")
         dq, dk, dv = (torch.empty((b, n, c), dtype=q.dtype, device=q.device)
                       for _ in range(3))
         stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
@@ -404,7 +448,43 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} "
                            f"(B={b}, N={n}, H={num_heads}, D={d}, {q.dtype})")
     packed_bwd_launches += 1
+    route_launches[route] += 1
     return dq, dk, dv
+
+
+def backward_probabilities(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           g: torch.Tensor, num_heads: int):
+    """A measurement on the card, on no path of the model: runs the bf16
+    backward (both passes) on three contiguous (B, N, C) CUDA operands and
+    returns the probabilities each pass forms, two f32 (B, H, N, N) tensors
+    P[i, j] (pass 1 by query rows, pass 2 by key rows), so that their
+    difference can be read. Counts no launch."""
+    name = "backward_probabilities"
+    _require_cuda(name, q)
+    if q.dtype != torch.bfloat16 or q.dim() != 3:
+        raise ValueError(f"{name} takes bf16 (B, N, C) operands, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    (q, k, v), in_batch, in_row, b, n, c, route = _rows(name, (q, k, v),
+                                                        num_heads)
+    d = c // num_heads
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        _check_smem(name, lib, route, True, q, d, "two head operands")
+        grads = [torch.empty_like(q) for _ in range(3)]
+        stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
+                            device=q.device)
+        probes = [torch.full((b, num_heads, n, n), float("nan"),
+                             device=q.device) for _ in range(2)]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tic_attention_bwd_probes(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), in_batch, in_row,
+            g.data_ptr(), *(x.data_ptr() for x in grads), n * c, c,
+            stats.data_ptr(), b, n, num_heads, d, d ** -0.5,
+            *(x.data_ptr() for x in probes), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    return tuple(probes)
 
 
 class _PackedAttention(torch.autograd.Function):

@@ -10,8 +10,9 @@ root, so it builds and times that checkout's kernels through
 version of the port). The processes run in turns, other, this, this, other,
 per round, so that drift of the card or its host falls on both sides alike.
 Each prints the median of 30 CUDA-event timings of K1 and K2 at ViT-L batch
-64 in bf16 (B 64, N 197, C 1024, H 16); the script prints one JSON line per
-process and, last, the card and the medians of each side.
+64 (B 64, N 197, C 1024, H 16) in bf16 and in f32 (the two device routes
+since the tensor-core redesign: ``mma`` and ``simt``); the script prints one
+JSON line per process and, last, the card and the medians of each side.
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ from touhouimageclassification_tpu_torch.ops._build import build_library
 build_library()
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
-qkv = torch.randn(64, 197, 3 * 1024, generator=gen, device=dev).to(torch.bfloat16)
-g = torch.randn(64, 197, 1024, generator=gen, device=dev).to(torch.bfloat16)
+qkv32 = torch.randn(64, 197, 3 * 1024, generator=gen, device=dev)
+g32 = torch.randn(64, 197, 1024, generator=gen, device=dev)
+qkv, g = qkv32.to(torch.bfloat16), g32.to(torch.bfloat16)
 
 def ms(fn, warmup=5, reps=30):
     for _ in range(warmup):
@@ -46,8 +48,11 @@ def ms(fn, warmup=5, reps=30):
         times.append(a.elapsed_time(b))
     return statistics.median(times)
 
-print(json.dumps({"k1_ms": ms(lambda: attn.slab_attention_forward(qkv, 16)),
-                  "k2_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16))}))
+print(json.dumps({
+    "k1_ms": ms(lambda: attn.slab_attention_forward(qkv, 16)),
+    "k2_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16)),
+    "k1_f32_ms": ms(lambda: attn.slab_attention_forward(qkv32, 16)),
+    "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16))}))
 """
 
 
@@ -77,7 +82,7 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     print(json.dumps({side: {k: statistics.median(r[k] for r in rs)
-                             for k in ("k1_ms", "k2_ms")}
+                             for k in rs[0]}
                       for side, rs in runs.items()}))
     return 0
 
