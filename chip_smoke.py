@@ -22,18 +22,23 @@ fatal on failure:
    library call is SDPA's autograd backward), and check that autograd
    through the fused attention runs K1 then K2; measure how far the
    probabilities of K2's two passes differ;
-5. the same for the three-operand attention (K3, forward and backward), the
-   (B, N, H, D) attention forward (K4, on the q, k, v views of a QKV slab,
-   as the model hands them) and the patch embedding (K5, against
-   ``F.conv2d``), then ``packed_attention`` (K3's op) once under autograd;
+5. the same for the three-operand attention (K3, forward and backward) and
+   the (B, N, H, D) attention forward (K4, on the q, k, v views of a QKV
+   slab, as the model hands them); the patch embedding (K5) at ViT-L's
+   shapes and in a bf16 sweep (B 1, 3, 63; 224x224 at P 16 and 8, 224x160;
+   D 64 to 1024), bf16 launches on the tensor-core route (``wgmma``) and
+   f32 on ``simt``, timed against ``F.conv2d`` and the model's ``'xla'``
+   patch embedding; then ``packed_attention`` (K3's op) once under
+   autograd;
 6. run ``infer.serve.main`` on a 120-class fixture ImageFolder: ``--full``
    without and with the canvas cache (which resizes on the device), then one
    single image; check the CSVs and that every forward launched K1 once per
    encoder layer;
 7. compare the whole model on the same weights and images: plain attention
    and 'flash' + 'pallas' against the default; time bucket-1 latency and
-   bucket-64 throughput of each, counting K4 and K5 launches per forward;
-   profile one bucket-64 'fused' forward;
+   bucket-64 throughput of each, counting K4 and K5 launches per forward
+   (every K5 launch on the ``wgmma`` route); profile one bucket-64 'fused'
+   forward;
 8. five ``nvit`` train steps (full augmentation, CutMix/MixUp, AdamW, bf16
    over f32 params, NaN guard) through the port's ``Trainer`` on batches of
    the fixture's 256x256 canvases from ``HostImageLoader``: finite, unskipped
@@ -44,8 +49,9 @@ fatal on failure:
    parameter's gradient (an SGD step with lr 1 moves each parameter by its
    gradient);
 10. train img/s of the three at batches 8 and 64, peak device memory, K4
-    and K5 launches per step, and profiles of one batch-64 step of 'fused'
-    and of 'flash' + 'pallas' and one batch-8 'fused' step.
+    and K5 launches per step (K5 on ``wgmma``), and profiles of one
+    batch-64 step of 'fused' and of 'flash' + 'pallas' and one batch-8
+    'fused' step.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -77,10 +83,11 @@ PER_CLASS = 2
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2), "float32": dict(atol=1e-4, rtol=1e-4)}
 # Whole ViT-L in bf16 against the default model: the plain attention
 # differs by bf16 rounding of P and O in each of 24 layers, 'flash' +
-# 'pallas' by the patch embedding's one rounding (f32 bias) where the
-# default rounds twice; the residual stream carries those differences to the
-# head. Random weights give logits of order 1, so 5e-2 is a few percent of
-# their spread; argmax must agree wherever the top-2 margin exceeds it.
+# 'pallas' at most by the patch embedding's summation order (K4 is K1's
+# device code; the default's cuBLAS GEMM also adds the bias in f32 and rounds
+# once); the residual stream carries those differences to the head. Random
+# weights give logits of order 1, so 5e-2 is a few percent of their spread;
+# argmax must agree wherever the top-2 margin exceeds it.
 LOGIT_TOL = 5e-2
 # One ViT-L train step, 'xla' (autograd of the plain attention, which rounds
 # dP to bf16 where K2 keeps it in f32) or 'flash' + 'pallas' (the plain
@@ -111,6 +118,14 @@ PEAK_BYTES = 3.35e12
 SWEEP_N = (1, 16, 67, 197, 257, 577)
 SWEEP_D = (32, 64, 128)
 ROUTES = {"bfloat16": "mma", "float32": "simt"}
+# The patch embedding's bf16 sweep: batches around the serve buckets and a
+# ragged last 128-row tile (M 196, 588, 12,348), ViT's 224x224 at P 16 and 8
+# and a non-square image (H, W, P), and output widths from one tile to
+# ViT-L's, with a ragged edge (1000). Its routes by dtype.
+PE_SWEEP_B = (1, 3, 63)
+PE_SWEEP_SHAPES = ((224, 224, 16), (224, 224, 8), (224, 160, 16))
+PE_SWEEP_D = (64, 768, 1000, 1024)
+PE_ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
 # The model variants: the default configuration, the plain attention, and
 # the slice of the three-operand kernels ('flash' = K4, 'pallas' = K5).
 VARIANTS = {
@@ -194,6 +209,30 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Median device milliseconds per ``fn()``: a spin kernel first holds
+    the card busy for ~5 ms, long enough for the host to enqueue ``calls``
+    calls, which then run back to back between two CUDA events. For a
+    kernel shorter than its launch's host time, :func:`cuda_ms` (events
+    around one call) times the host instead."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -243,14 +282,14 @@ def check_close(torch, what: str, out, ref, dtype, verbose: bool = True):
     return err if verbose else (err, rel)
 
 
-def on_route(attn, dtype, launches: int, run):
-    """``run()``, which makes ``launches`` kernel launches: every one must
-    take the dtype's route (bf16 ``mma``, f32 ``simt``). Returns its
-    result."""
-    want = ROUTES[dtype_key(dtype)]
-    before = dict(attn.route_launches)
+def on_route(ops, dtype, launches: int, run, routes=ROUTES):
+    """``run()``, which makes ``launches`` kernel launches of the module
+    ``ops``: every one must take the dtype's route (``routes``: attention
+    bf16 ``mma``, f32 ``simt``). Returns its result."""
+    want = routes[dtype_key(dtype)]
+    before = dict(ops.route_launches)
     out = run()
-    made = {r: attn.route_launches[r] - before[r] for r in before}
+    made = {r: ops.route_launches[r] - before[r] for r in before}
     if made != {r: launches if r == want else 0 for r in made}:
         raise AssertionError(f"{dtype_key(dtype)} launches by route {made}, "
                              f"expected {launches} on {want}")
@@ -455,21 +494,19 @@ def phase_backward(torch, attn):
                 library_ms=library_ms)
 
 
-def phase_three_operand_kernels(torch, attn, pe):
-    """K3 (forward and backward), K4 and K5 against their plain versions at
+def phase_three_operand_kernels(torch, attn):
+    """K3 (forward and backward) and K4 against their plain versions at
     the shapes their callers give them, in bf16 at ViT-L batch 64 and in f32
     at a small odd shape; times at batch 64 in bf16 beside their plain
     versions, the one PyTorch call that computes the same function, and
     their bounds. Returns {kernel: summary}."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    F = torch.nn.functional
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def randn(*shape, dtype, scale=1.0):
-        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def launched(counter, expect):
         torch.cuda.synchronize()
@@ -565,41 +602,110 @@ def phase_three_operand_kernels(torch, attn, pe):
     sweep(torch, attn, "K3 bwd", True, three_bwd)
     sweep(torch, attn, "K4 on views of the QKV slab", False, slab_views)
 
-    # K5 on the model's operands: NHWC images in the compute dtype, the
-    # (D, P*P*C) nn.Linear weight and the bias, cast to it
-    patch, d = 16, 1024
-    for name, b, dtype in [("vit-l batch 64", 64, bf16),
-                           ("vit-l batch 2", 2, f32)]:
-        images = randn(b, 224, 224, 3, dtype=dtype)
-        weight = randn(d, patch * patch * 3, dtype=dtype, scale=0.02)
-        bias = randn(d, dtype=dtype, scale=0.02)
-        before = pe.launches
-        fwd = pe.patch_embed_forward(images, weight, bias, patch)
-        launched([(pe, "launches")], (before + 1,))
-        err = check_close(torch, f"K5 vs plain, {name}", fwd,
-                          pe.patch_embed_reference(images, weight, bias, patch),
-                          dtype)
-        if b == 64:
-            conv_w = weight.view(d, patch, patch, 3).permute(0, 3, 1, 2)
-            nchw = images.permute(0, 3, 1, 2)
-            m, kk = b * (224 // patch) ** 2, patch * patch * 3
-            bound_ms, bound_by = bound(
-                2 * m * kk * d, 2 * (images.numel() + weight.numel() + d + m * d),
-                dtype)
-            out["K5"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: pe.patch_embed_forward(images, weight, bias,
-                                                          patch)),
-                plain_ms=cuda_ms(lambda: pe.patch_embed_reference(
-                    images, weight, bias, patch)),
-                library_ms=cuda_ms(lambda: F.conv2d(nchw, conv_w, bias,
-                                                    stride=patch)),
-                bound_ms=bound_ms, bound_by=bound_by)
     for key, r in out.items():
         print(f"{key}, ViT-L batch 64 bf16: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library call {r['library_ms']:.4f} ms "
               f"(median of 30); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+def phase_patch_embed(torch, pe):
+    """K5 against its plain version on the model's operands (NHWC images in
+    the compute dtype, the (D, P*P*C) nn.Linear weight and the bias, cast to
+    it) at ViT-L batch 64 in bf16 and batch 2 in f32, then over the bf16
+    sweep, each launch on its dtype's route; times at batch 64 in bf16
+    beside the plain version, ``F.conv2d`` (the one PyTorch call for the
+    same function) and the model's ``'xla'`` patch embedding (the unfold
+    copy and ``F.linear``), and the bound. ``ms``, ``plain_ms``,
+    ``library_ms`` and ``xla_path_ms`` are timed as every other kernel's,
+    around one call (:func:`cuda_ms`). The kernel takes less time on the
+    device than its launch on the host, so ``device_ms``,
+    ``library_device_ms`` and ``xla_path_device_ms`` add the device times
+    of the kernel, ``F.conv2d`` and the ``'xla'`` path
+    (:func:`device_ms`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def operands(b, h, w, patch, d, dtype):
+        images = torch.randn(b, h, w, 3, generator=gen, device=dev).to(dtype)
+        weight = (0.02 * torch.randn(d, patch * patch * 3, generator=gen,
+                                     device=dev)).to(dtype)
+        bias = (0.02 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        return images, weight, bias
+
+    def launch(images, weight, bias, patch):
+        before = pe.launches
+        out = on_route(pe, images.dtype, 1, lambda: pe.patch_embed_forward(
+            images, weight, bias, patch), PE_ROUTES)
+        torch.cuda.synchronize()
+        if pe.launches != before + 1:
+            raise AssertionError(f"K5 launches went {before} -> {pe.launches}")
+        return out
+
+    patch, d = 16, 1024
+    f32_ops = operands(2, 224, 224, patch, d, torch.float32)
+    check_close(torch, "K5 vs plain, vit-l batch 2", launch(*f32_ops, patch),
+                pe.patch_embed_reference(*f32_ops, patch), torch.float32)
+    images, weight, bias = operands(64, 224, 224, patch, d, torch.bfloat16)
+    stats = dict(max_abs_err=check_close(
+        torch, "K5 vs plain, vit-l batch 64", launch(images, weight, bias, patch),
+        pe.patch_embed_reference(images, weight, bias, patch), torch.bfloat16))
+    worst = (0.0, 0.0)
+    for b in PE_SWEEP_B:
+        for h, w, p in PE_SWEEP_SHAPES:
+            for dd in PE_SWEEP_D:
+                ops = operands(b, h, w, p, dd, torch.bfloat16)
+                got = check_close(torch, f"K5 B {b} {h}x{w} P {p} D {dd}",
+                                  launch(*ops, p),
+                                  pe.patch_embed_reference(*ops, p),
+                                  torch.bfloat16, verbose=False)
+                worst = tuple(max(x, y) for x, y in zip(worst, got))
+    print(f"K5, bf16 sweep B {PE_SWEEP_B} x (H, W, P) {PE_SWEEP_SHAPES} x D "
+          f"{PE_SWEEP_D}: every launch on the wgmma route; worst max |diff| "
+          f"{worst[0]:.3e}, relative norm {worst[1]:.3e} (bounds "
+          f"{TOL['bfloat16']}, {REL_TOL['bfloat16']})")
+
+    m, k = 64 * (224 // patch) ** 2, patch * patch * 3
+    nchw = images.permute(0, 3, 1, 2)
+    conv_w = weight.view(d, patch, patch, 3).permute(0, 3, 1, 2)
+    stats["bound_ms"], stats["bound_by"] = bound(
+        2 * m * k * d, 2 * (images.numel() + weight.numel() + d + m * d),
+        torch.bfloat16)
+    def kernel():
+        return pe.patch_embed_forward(images, weight, bias, patch)
+
+    def xla_path():
+        return F.linear(pe.unfold(images, patch), weight, bias)
+
+    differ = int((kernel() != xla_path()).sum())
+    print(f"K5 vs the model's 'xla' patch embedding (unfold + F.linear), ViT-L "
+          f"batch 64 bf16: {differ} of {m * d} elements differ")
+
+    def conv():
+        return F.conv2d(nchw, conv_w, bias, stride=patch)
+
+    stats.update(
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: pe.patch_embed_reference(images, weight,
+                                                          bias, patch)),
+        library_ms=cuda_ms(conv), xla_path_ms=cuda_ms(xla_path),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(conv),
+        xla_path_device_ms=device_ms(xla_path))
+    print(f"K5, ViT-L batch 64 bf16, one call between events (median of 30): "
+          f"kernel {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f}, "
+          f"F.conv2d {stats['library_ms']:.4f}, 'xla' path (unfold + "
+          f"F.linear) {stats['xla_path_ms']:.4f}; device time (20 "
+          f"back-to-back calls, median of 10): kernel "
+          f"{stats['device_ms']:.4f} ms "
+          f"({2 * m * k * d / stats['device_ms'] / 1e9:.1f} TFLOP/s), "
+          f"F.conv2d {stats['library_device_ms']:.4f}, 'xla' path "
+          f"{stats['xla_path_device_ms']:.4f}; bound {stats['bound_ms']:.4f} "
+          f"ms ({stats['bound_by']}), share of the device time "
+          f"{stats['bound_ms'] / stats['device_ms']:.3f}")
+    return stats
 
 
 def phase_packed_op(torch, attn) -> tuple[int, int]:
@@ -720,6 +826,7 @@ def phase_model(torch, attn, pe, serve, create_model, load_vit_weights,
         k1 = attn.launches
         attn.flash_launches = pe.launches = 0
         routes = dict(attn.route_launches)
+        pe_routes = dict(pe.route_launches)
         for _ in range(5):
             pred.predict_array(imgs[:1])
         lat = []
@@ -749,6 +856,11 @@ def phase_model(torch, attn, pe, serve, create_model, load_vit_weights,
         if by_route != {"mma": made[0] + made[1], "simt": 0}:
             raise AssertionError(f"serve {variant}: attention launches by "
                                  f"route {by_route}, expected all on mma")
+        pe_by_route = {r: pe.route_launches[r] - pe_routes[r]
+                       for r in pe_routes}
+        if pe_by_route != {"wgmma": made[2], "simt": 0}:
+            raise AssertionError(f"serve {variant}: K5 launches by route "
+                                 f"{pe_by_route}, expected all on wgmma")
         if flash:
             launches = made[1:]
         if variant == "fused":
@@ -852,12 +964,14 @@ def phase_train_compare(attn, pe, create_model, Trainer, state_dict,
                                                  variant, dev), device=dev)
         state = trainer.init_state()
         attn.flash_launches = pe.launches = 0
+        pe.route_launches.update(wgmma=0, simt=0)
         metrics[variant] = trainer.train_step(state, trainer.stage(batch))
         made = (attn.flash_launches, pe.launches)
         expect = (layers, 1) if variant == "flash+pallas" else (0, 0)
-        if made != expect:
+        if made != expect or pe.route_launches["wgmma"] != made[1]:
             raise AssertionError(f"{variant} step: K4/K5 launches {made}, "
-                                 f"expected {expect}")
+                                 f"K5 by route {pe.route_launches}, expected "
+                                 f"{expect}, K5 on wgmma")
         grads[variant] = {k: state_dict[k].to(dev) - p.detach()
                           for k, p in state.model.named_parameters()}
         del trainer, state
@@ -906,6 +1020,7 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
                 "label": rng.integers(0, NUM_CLASSES, b).astype(np.int32),
                 "mask": np.ones(b, bool)})
             attn.flash_launches = pe.launches = 0
+            pe.route_launches.update(wgmma=0, simt=0)
             for _ in range(2):
                 trainer.train_step(state, batch)
             torch.cuda.synchronize()
@@ -924,9 +1039,12 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
                 raise AssertionError(f"{variant} batch {b}: non-finite loss")
             flash = variant == "flash+pallas"
             expect = (12 * layers, 12) if flash else (0, 0)
-            if made != expect:
+            if made != expect or pe.route_launches != {"wgmma": made[1],
+                                                       "simt": 0}:
                 raise AssertionError(f"{variant} batch {b}: K4/K5 launches "
-                                     f"{made}, expected {expect}")
+                                     f"{made}, K5 by route "
+                                     f"{pe.route_launches}, expected "
+                                     f"{expect}, K5 on wgmma")
             if flash and b == 64:
                 launches = made
             if variant == "fused" or (flash and b == 64):
@@ -996,7 +1114,8 @@ def main() -> int:
 
     stats = {"K1": phase_kernels(torch, attn),
              "K2": phase_backward(torch, attn),
-             **phase_three_operand_kernels(torch, attn, pe)}
+             **phase_three_operand_kernels(torch, attn),
+             "K5": phase_patch_embed(torch, pe)}
     packed_launches = phase_packed_op(torch, attn)
 
     layers = 24
@@ -1049,12 +1168,16 @@ def main() -> int:
         ("K5", "patch_embed", "patch_embed.cu", "patch_embed.py:22",
          {"serve": flash_serve[1], "train": flash_train[1]}, "train"),
     ]
+    # the device route each wrapper names for ViT-L's shapes, by dtype
+    device_routes = {
+        key: {dtype_key(dt): (pe.kernel_route(dt, 16, 3, 224) if key == "K5"
+                              else attn.kernel_route(dt, 64))
+              for dt in (torch.bfloat16, torch.float32)}
+        for key in stats}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + source,
-        "device_routes": ({"bfloat16": "simt", "float32": "simt"}
-                          if key == "K5" else
-                          {"bfloat16": "mma", "float32": "simt"}),
+        "device_routes": device_routes[key],
         "replaces": ref + replaces, "launches": by_path[main_path],
         "launches_by_path": by_path, **stats[key]}
         for key, name, source, replaces, by_path, main_path in kernels]}))

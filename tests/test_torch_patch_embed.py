@@ -4,7 +4,9 @@
 The same numpy images, kernel and bias go through both; the port takes the
 kernel in its ``nn.Linear`` layout, (D, P*P*C), the transpose of JAX's
 (P*P*C, D). f32 bounds cover summation order only. The CUDA kernel itself
-runs only on a GPU (``cuda`` marker).
+runs only on a GPU (``cuda`` marker); which of its two device routes a
+launch takes (bf16 on the tensor cores, ``'wgmma'``; f32 on ``'simt'``) is
+decided in Python and tested here.
 """
 import jax
 import jax.numpy as jnp
@@ -120,22 +122,71 @@ def test_image_gradient_only_when_asked():
     torch.testing.assert_close(bias.grad, torch.full_like(bias, 8.0))
 
 
+@pytest.mark.parametrize("dtype,patch,c,w,route", [
+    (torch.bfloat16, 16, 3, 224, "wgmma"),   # ViT-*/16
+    (torch.bfloat16, 8, 3, 224, "wgmma"),
+    (torch.bfloat16, 16, 3, 160, "wgmma"),
+    (torch.float32, 16, 3, 224, "simt"),
+    (torch.float32, 14, 3, 224, "simt"),     # f32 takes any shape
+])
+def test_kernel_route(dtype, patch, c, w, route):
+    assert port.kernel_route(dtype, patch, c, w) == route
+
+
+@pytest.mark.parametrize("patch,c,w", [(14, 3, 224),   # P*C = 42
+                                       (3, 8, 24)])    # K = 72
+def test_bf16_shape_off_the_tensor_core_route_raises(patch, c, w):
+    """The wgmma route copies 16-byte chunks of one (pw, c) run and steps K
+    by 16: a bf16 shape outside that raises, and no other route takes it."""
+    with pytest.raises(ValueError, match="wgmma"):
+        port.kernel_route(torch.bfloat16, patch, c, w)
+
+
+def test_kernel_route_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        port.kernel_route(torch.float16, 16, 3, 224)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_call_counts_no_launch_on_either_route(dtype):
+    args = _port(*_operands(2, 16, 16, 8, 16, seed=7), dtype)
+    before = (port.launches, dict(port.route_launches))
+    port.patch_embed_forward(*args, 8)
+    port.patch_embed(*args, 8)
+    assert (port.launches, port.route_launches) == before
+
+
+# ViT-L's shapes, then the bf16 sweep of chip_smoke.py: batches around the
+# serve buckets with ragged last tiles, 224x224 at P 16 and 8, a non-square
+# image, and D from one tile to ViT-L's with a ragged edge (1000)
+_GPU_CASES = [(64, 224, 224, 16, 1024, torch.bfloat16),
+              (2, 224, 224, 16, 1024, torch.float32)] + [
+    (b, h, w, patch, d, torch.bfloat16) for b in (1, 3, 63)
+    for h, w, patch in ((224, 224, 16), (224, 224, 8), (224, 160, 16))
+    for d in (64, 768, 1000, 1024)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,dtype", [(64, torch.bfloat16), (2, torch.float32)])
-def test_kernel_matches_plain_on_gpu(require_cuda, b, dtype):
-    """K5 against its plain version at ViT-L's shapes: both sum in f32 and
-    round once, so bf16 differs by at most one step where summation order
-    crosses a rounding boundary; f32 by summation order only."""
-    images, kernel, bias = _operands(b, 224, 224, 16, 1024, seed=6)
+@pytest.mark.parametrize("b,h,w,patch,d,dtype", _GPU_CASES)
+def test_kernel_matches_plain_on_gpu(require_cuda, b, h, w, patch, d, dtype):
+    """K5 against its plain version, on its dtype's route: both sum in f32
+    and round once, so bf16 differs by at most one step where summation
+    order crosses a rounding boundary; f32 by summation order only. The
+    relative difference in norm resolves faults far below the elementwise
+    bound (chip_smoke.py's REL_TOL)."""
+    images, kernel, bias = _operands(b, h, w, patch, d, seed=6)
     args = [x.to("cuda") for x in _port(images, kernel, bias, dtype)]
-    before = port.launches
-    out = port.patch_embed_forward(*args, 16)
+    route = port.kernel_route(dtype, patch, 3, w)
+    before = (port.launches, port.route_launches[route])
+    out = port.patch_embed_forward(*args, patch)
     torch.cuda.synchronize()
-    assert port.launches == before + 1
-    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
-           else dict(atol=1e-4, rtol=1e-4))
-    torch.testing.assert_close(
-        out.float(), port.patch_embed_reference(*args, 16).float(), **tol)
+    assert (port.launches, port.route_launches[route]) == (before[0] + 1,
+                                                           before[1] + 1)
+    bf16 = dtype == torch.bfloat16
+    tol = dict(atol=2e-2, rtol=2e-2) if bf16 else dict(atol=1e-4, rtol=1e-4)
+    ref = port.patch_embed_reference(*args, patch).float()
+    torch.testing.assert_close(out.float(), ref, **tol)
+    assert (out.float() - ref).norm() / ref.norm() < (1e-3 if bf16 else 1e-5)
 
 
 @pytest.fixture

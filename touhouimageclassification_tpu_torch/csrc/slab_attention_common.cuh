@@ -3,7 +3,8 @@
 // warp reductions and the padded shared-memory row pitch of the f32 SIMT
 // route (its kernels are templates on the element type, instantiated for
 // float only); cp.async staging, ldmatrix, mma.sync and the fragment layouts
-// of the bf16 tensor-core route (namespace tic::mma).
+// of the bf16 tensor-core route (namespace tic::mma). The patch embedding
+// (patch_embed.cu, K5) gathers its image tiles with the cp.async helpers.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,7 +12,11 @@ in ``nn.Linear`` layout, K = P*P*C.
 - :func:`patch_embed_forward` wraps the CUDA kernel
   (``csrc/patch_embed.cu``, an implicit-im2col GEMM); it takes the plain
   version only for tensors on the CPU, and a CUDA tensor launches the kernel
-  or raises. ``launches`` counts its launches.
+  or raises. ``launches`` counts its launches, ``route_launches`` the same
+  launches by device route (:func:`kernel_route`): bf16 runs on the tensor
+  cores (``'wgmma'``: the weight by TMA, the image gathered with
+  ``cp.async``), f32 on SIMT FMAs (``'simt'``; the tensor cores take f32
+  only as TF32). A bf16 shape the tensor-core route cannot take raises.
 - :func:`patch_embed` is a ``torch.autograd.Function``: the kernel forward
   and the plain backward of JAX's ``_bwd`` (the unfold is a permutation, so
   the gradients are two products and a sum, in f32, cast to the operands'
@@ -29,8 +33,10 @@ import torch
 from ._build import load_library
 
 launches = 0
+route_launches = {"wgmma": 0, "simt": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 
 
 def unfold(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -56,11 +62,29 @@ def patch_embed_reference(images: torch.Tensor, weight: torch.Tensor,
     return (y + bias.float()).to(images.dtype)
 
 
-def _check(images: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           patch: int) -> None:
-    if images.dtype not in _DTYPE_CODES:
+def kernel_route(dtype: torch.dtype, patch: int, c: int, w: int) -> str:
+    """The device route K5 takes for ``dtype`` at patch P, C channels and
+    image width W: ``'wgmma'`` (bf16, tensor cores) or ``'simt'`` (f32).
+    Raises TypeError for any other dtype, and ValueError for a bf16 shape
+    the tensor-core route cannot take: its 16-byte image copies need P*C
+    and W*C to be multiples of 8 elements, and its k16 steps a K = P*P*C
+    that is a multiple of 16 (ViT at P 16 or 8, C 3 and any W that is a
+    multiple of 8 qualifies)."""
+    if dtype not in _ROUTES:
         raise TypeError(f"patch_embed kernel takes float32 or bfloat16, got "
-                        f"{images.dtype}")
+                        f"{dtype}")
+    if dtype == torch.bfloat16 and ((patch * c) % 8 or (w * c) % 8
+                                    or (patch * patch * c) % 16):
+        raise ValueError(f"patch_embed bf16 kernel (wgmma route) needs P*C "
+                         f"and W*C multiples of 8 and P*P*C a multiple of 16, "
+                         f"got P={patch}, C={c}, W={w}")
+    return _ROUTES[dtype]
+
+
+def _check(images: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           patch: int) -> str:
+    """Shapes, dtypes and devices of the kernel's operands; returns the
+    route (:func:`kernel_route`, which raises for an unsupported dtype)."""
     if images.dim() != 4:
         raise ValueError(f"patch_embed expects (B, H, W, C) images, got "
                          f"{tuple(images.shape)}")
@@ -78,6 +102,7 @@ def _check(images: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             raise ValueError(f"patch_embed: weight and bias must be "
                              f"{images.dtype} on {images.device}, got "
                              f"{x.dtype} on {x.device}")
+    return kernel_route(images.dtype, patch, c, w)
 
 
 def patch_embed_forward(images: torch.Tensor, weight: torch.Tensor,
@@ -91,8 +116,12 @@ def patch_embed_forward(images: torch.Tensor, weight: torch.Tensor,
         return patch_embed_reference(images, weight, bias, patch)
     if images.device.type != "cuda":
         raise ValueError(f"patch_embed runs on cpu or cuda, got {images.device}")
-    _check(images, weight, bias, patch)
+    route = _check(images, weight, bias, patch)
     images, weight, bias = (x.contiguous() for x in (images, weight, bias))
+    if route == "wgmma" and (images.data_ptr() % 16 or weight.data_ptr() % 16):
+        raise ValueError("patch_embed kernel (wgmma route) reads 16-byte "
+                         "chunks: images and weight must start on such a "
+                         "boundary")
     b, h, w, c = images.shape
     d = weight.shape[0]
     lib = load_library()
@@ -108,6 +137,7 @@ def patch_embed_forward(images: torch.Tensor, weight: torch.Tensor,
                            f"{err} (B={b}, H={h}, W={w}, C={c}, P={patch}, "
                            f"D={d}, {images.dtype})")
     launches += 1
+    route_launches[route] += 1
     return out
 
 

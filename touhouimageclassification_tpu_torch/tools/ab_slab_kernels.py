@@ -1,18 +1,24 @@
-"""A/B of the slab attention kernels K1 (forward) and K2 (backward) between
-two checkouts of the repository, on one GPU:
+"""A/B of the slab attention kernels K1 (forward) and K2 (backward) and the
+patch embedding K5 between two checkouts of the repository, on one GPU:
 
     python -m touhouimageclassification_tpu_torch.tools.ab_slab_kernels \\
         --other <root of the other checkout> [--rounds 2]
 
 Each measurement is a fresh process whose ``PYTHONPATH`` is one checkout's
 root, so it builds and times that checkout's kernels through
-``slab_attention_forward`` and ``slab_attention_backward`` (present in every
-version of the port). The processes run in turns, other, this, this, other,
-per round, so that drift of the card or its host falls on both sides alike.
-Each prints the median of 30 CUDA-event timings of K1 and K2 at ViT-L batch
-64 (B 64, N 197, C 1024, H 16) in bf16 and in f32 (the two device routes
-since the tensor-core redesign: ``mma`` and ``simt``); the script prints one
-JSON line per process and, last, the card and the medians of each side.
+``slab_attention_forward``, ``slab_attention_backward`` and
+``patch_embed_forward`` (present in every version of the port since K5's
+port). The processes run in turns, other, this, this, other, per round, so
+that drift of the card or its host falls on both sides alike. Each prints
+the median of 30 CUDA-event timings of K1 and K2 at ViT-L batch 64 (B 64, N
+197, C 1024, H 16) in bf16 and in f32 (the two device routes since the
+tensor-core redesign: ``mma`` and ``simt``), and of K5 at ViT-L batch 64
+(64 images of 224x224, P 16, D 1024) in bf16 and f32: around one call
+(``k5_ms``, as K1 and K2) and on the device alone (``k5_device_ms``: 20
+back-to-back calls behind a spin kernel, median of 10; the bf16 kernel
+takes less time on the device than its launch on the host). The script
+prints one JSON line per process and, last, the card and the medians of
+each side.
 """
 from __future__ import annotations
 
@@ -37,22 +43,37 @@ qkv32 = torch.randn(64, 197, 3 * 1024, generator=gen, device=dev)
 g32 = torch.randn(64, 197, 1024, generator=gen, device=dev)
 qkv, g = qkv32.to(torch.bfloat16), g32.to(torch.bfloat16)
 
-def ms(fn, warmup=5, reps=30):
+def ms(fn, warmup=5, reps=30, calls=1):
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize()
-        times.append(a.elapsed_time(b))
+        if calls > 1:
+            torch.cuda._sleep(10_000_000)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record(); b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+from touhouimageclassification_tpu_torch.ops import patch_embed as pe
+img32 = torch.randn(64, 224, 224, 3, generator=gen, device=dev)
+w32 = 0.02 * torch.randn(1024, 768, generator=gen, device=dev)
+b32 = 0.02 * torch.randn(1024, generator=gen, device=dev)
+img, w, bias = (x.to(torch.bfloat16) for x in (img32, w32, b32))
+k5 = lambda: pe.patch_embed_forward(img, w, bias, 16)
+k5_32 = lambda: pe.patch_embed_forward(img32, w32, b32, 16)
 
 print(json.dumps({
     "k1_ms": ms(lambda: attn.slab_attention_forward(qkv, 16)),
     "k2_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16)),
     "k1_f32_ms": ms(lambda: attn.slab_attention_forward(qkv32, 16)),
-    "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16))}))
+    "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16)),
+    "k5_ms": ms(k5), "k5_device_ms": ms(k5, reps=10, calls=20),
+    "k5_f32_ms": ms(k5_32), "k5_f32_device_ms": ms(k5_32, reps=10, calls=20)}))
 """
 
 
