@@ -51,7 +51,17 @@ fatal on failure:
 10. train img/s of the three at batches 8 and 64, peak device memory, K4
     and K5 launches per step (K5 on ``wgmma``), and profiles of one
     batch-64 step of 'fused' and of 'flash' + 'pallas' and one batch-8
-    'fused' step.
+    'fused' step;
+11. the training loop end to end: ``train.ntrain.main`` (the ``nvit``
+    preset, one epoch through ``HostImageLoader``, from a synthetic local
+    HF snapshot of the random weights) with K1 and K2 launched once per
+    layer per step on the ``mma`` route, its checkpoint restored, ``--test``,
+    ``--transform`` to a serving export and the serve CLI on that export,
+    whose judge CSV must equal the one of a ``Predictor`` on the restored
+    model; a profiled ``Trainer.fit``; then exact resume from the seeded
+    scratch initialisation: a run killed by SIGTERM after batch 3 and
+    resumed must end with every parameter equal to an uninterrupted run's.
+    Prints the seconds and bytes of a ViT-L save, a restore and the export.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -63,6 +73,8 @@ import csv
 import dataclasses
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1006,9 +1018,10 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
     (device-resident 256x256 uint8 batches: the loader is not timed), 2
     warm-up + 10 timed steps, and peak device memory; then a profile of one
     step for 'fused' at both batches and 'flash' + 'pallas' at 64. Returns
-    the K4 and K5 launches of the 12 'flash' + 'pallas' batch-64 steps."""
+    the K4 and K5 launches of the 12 'flash' + 'pallas' batch-64 steps and
+    the img/s of each (variant, batch)."""
     rng = np.random.default_rng(SEED + 4)
-    launches = None
+    launches, rates = None, {}
     for variant in VARIANTS:
         for b in (8, 64):
             cfg = nvit_config(data, global_batch_size=b)
@@ -1037,6 +1050,7 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
                   f"{m['loss']:.4f}, K4/K5 launches {made} in 12 steps")
             if not np.isfinite(m["loss"]):
                 raise AssertionError(f"{variant} batch {b}: non-finite loss")
+            rates[(variant, b)] = 10 * b / secs
             flash = variant == "flash+pallas"
             expect = (12 * layers, 12) if flash else (0, 0)
             if made != expect or pe.route_launches != {"wgmma": made[1],
@@ -1052,6 +1066,222 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
                         f"{variant} batch-{b} step")
             del trainer, state, batch
             torch.cuda.empty_cache()
+    return launches, rates
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+class KillAtBatch:
+    """Loader wrapper that sends SIGTERM to this process when the trainer
+    asks for batch ``n`` (0-based) of the run, once."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n, self.count = loader, n, 0
+
+    def steps_per_epoch(self):
+        return self.loader.steps_per_epoch()
+
+    def set_epoch(self, *args):
+        self.loader.set_epoch(*args)
+
+    def __iter__(self):
+        for batch in self.loader:
+            if self.count == self.n:
+                os.kill(os.getpid(), signal.SIGTERM)
+            self.count += 1
+            yield batch
+
+
+def fit_records(log_dir: str, train_id: str) -> list[dict]:
+    with open(os.path.join(log_dir, train_id, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
+              work: str, layers: int, dev, staged_rate: float):
+    """The training loop on the card (see the module docstring, phase 11).
+    Returns the K1 and K2 launches of the ``ntrain`` fit."""
+    from touhouimageclassification_tpu_torch.config import (PRESETS,
+                                                            CheckpointConfig)
+    from touhouimageclassification_tpu_torch.data import (get_class_to_idx,
+                                                         random_split,
+                                                         scan_image_folder)
+    from touhouimageclassification_tpu_torch.train import cli, ntrain
+    from touhouimageclassification_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    from touhouimageclassification_tpu_torch.train.trainer import Trainer
+
+    # (a) the CLI from a working directory: the presets' relative cache/,
+    # checkpoint/ and log/ land in it
+    cwd = os.getcwd()
+    os.chdir(work)
+    snapshot = os.path.join("cache", "google--vit-large-patch16-224-in21k")
+    os.makedirs(snapshot)
+    os.link(pth, os.path.join(snapshot, "pytorch_model.bin"))
+    cfg = dataclasses.replace(PRESETS["nvit"], data_dir=data, seed=SEED,
+                              max_epochs=1)
+    argv = ["--data-dir", data, "--max-epochs", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    index = scan_image_folder(data)
+    tr_idx, va_idx = random_split(len(index), cfg.train_split, cfg.seed)
+    steps = len(tr_idx) // cfg.global_batch_size
+    val_batches = -(-len(va_idx) // cfg.global_batch_size)
+    attn.launches = attn.bwd_launches = 0
+    attn.route_launches.update(mma=0, simt=0)
+    t0 = time.perf_counter()
+    trainer = ntrain.main([*argv, "--no-resume"])
+    fit_secs = time.perf_counter() - t0
+    launches = (attn.launches, attn.bwd_launches)
+    expect = (layers * (steps + val_batches), layers * steps)
+    print(f"ntrain fit, 1 epoch: {steps} steps + {val_batches} val batches, "
+          f"K1/K2 launches {launches} (expected {expect}), by route "
+          f"{attn.route_launches}, {fit_secs:.2f} s")
+    if launches != expect or attn.route_launches != {"mma": sum(launches),
+                                                     "simt": 0}:
+        raise AssertionError("ntrain fit: K1/K2 launches or routes")
+    records = [r for r in fit_records("log", cfg.train_id) if "epoch" in r]
+    if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
+            "train_loss", "val_loss", "val_acc")):
+        raise AssertionError(f"ntrain fit records {records}")
+    rec = records[0]
+    print(f"ntrain fit record: {json.dumps(rec)}")
+    print(f"nvit train img/s at batch 8: fit epoch through HostImageLoader "
+          f"(PIL decode, val excluded) {rec['images_per_second']:.2f}; "
+          f"staged batches (phase 10, 'fused') {staged_rate:.2f}")
+
+    # the fit's checkpoint, restored into a fresh trainer
+    ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id)
+    if ckpt.latest_epoch() != 1:
+        raise AssertionError(f"checkpoints {ckpt.all_steps()}")
+    ckpt_bytes = dir_bytes(os.path.join(ckpt.directory, "1"))
+    restored = Trainer(cfg, device=dev)
+    size = restored.out_size
+    state = restored.init_state(steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore(state)
+    torch.cuda.synchronize()
+    restore_secs = time.perf_counter() - t0
+    trained = dict(trainer.state.model.named_parameters())
+    if not all(torch.equal(p, trained[k])
+               for k, p in state.model.named_parameters()):
+        raise AssertionError("restored parameters differ from the fit's")
+    if (state.step, state.optimizer.count) != (steps, steps):
+        raise AssertionError(f"restored step {state.step}, count "
+                             f"{state.optimizer.count}")
+    timing = CheckpointManager(dataclasses.replace(
+        cfg.checkpoint, async_save=False), "timing",
+        directory=os.path.join(work, "save_timing"))
+    t0 = time.perf_counter()
+    timing.save(1, state, {"val_acc": rec["val_acc"]})
+    save_secs = time.perf_counter() - t0
+    shutil.rmtree(timing.directory)
+    del trainer
+    print(f"ViT-L checkpoint (params + AdamW moments + meta): "
+          f"{ckpt_bytes} bytes; one save {save_secs:.2f} s "
+          f"({ckpt_bytes / save_secs / 1e9:.2f} GB/s), one restore "
+          f"{restore_secs:.2f} s")
+
+    tested = ntrain.main([*argv, "--test"])
+    test_acc = tested.last_test_result["test_acc"]
+    if not np.isfinite(test_acc):
+        raise AssertionError(f"--test: {tested.last_test_result}")
+    del tested
+    export = os.path.join(work, "export")
+    t0 = time.perf_counter()
+    ntrain.main([*argv, "--transform", export])
+    export_secs = time.perf_counter() - t0
+    export_bytes = dir_bytes(export)
+    shutil.rmtree("checkpoint")
+    print(f"--test: {test_acc}; --transform: {export_bytes} bytes in "
+          f"{export_secs:.2f} s (model build, restore and write)")
+
+    out_csv = os.path.join(work, "judge_export.csv")
+    serve.main(["--model", "vit-large", "--weights", export, "--image", data,
+                "--data-dir", data, "--output", out_csv, "--full",
+                "--canvas-cache", "off"])
+    model = create_model("vit-large", num_classes=NUM_CLASSES, device=dev)
+    model.load_state_dict(state.model.state_dict())
+    pred = serve.Predictor(model=model, class_to_idx=get_class_to_idx(data),
+                           image_size=size, mean=cfg.augment.mean,
+                           std=cfg.augment.std, device=dev)
+    mem_csv = os.path.join(work, "judge_in_memory.csv")
+    serve.full_judge(pred, data, mem_csv, progress=False, canvas_cache="off")
+    rows = []
+    for path in (out_csv, mem_csv):
+        with open(path, newline="") as f:
+            rows.append([r[1] for r in csv.reader(f)])
+    if rows[0] != rows[1] or len(rows[0]) != len(index) + 1:
+        raise AssertionError("serve from the export disagrees with the "
+                             "restored model")
+    print(f"serve --weights <export>: {len(rows[0]) - 1} predictions, equal "
+          "to a Predictor on the restored model")
+    shutil.rmtree(export)
+    del model, pred, restored, state
+    os.chdir(cwd)
+
+    # the profiled window, through Trainer.fit
+    train, val, _, _ = cli.build_loaders(cfg, size)
+    prof_dir = os.path.join(work, "profile")
+    pcfg = dataclasses.replace(
+        cfg, train_id="profiled", limit_train_batches=3, limit_val_batches=1,
+        profile_dir=prof_dir, profile_steps=2,
+        checkpoint=dataclasses.replace(cfg.checkpoint, directory=os.path.join(
+            work, "ckpt_profile")), log_dir=os.path.join(work, "log"))
+    Trainer(pcfg, device=dev).fit(train, val, resume=False)
+    traces = os.listdir(prof_dir)
+    if not traces:
+        raise AssertionError("the profiled window wrote no trace")
+    shutil.rmtree(pcfg.checkpoint.directory)
+    print(f"profiled window: {traces[0]}, {dir_bytes(prof_dir)} bytes")
+
+    # (b) exact resume at full width from the seeded scratch init; keep the
+    # latest save only (a ViT-L training checkpoint is ~3.6 GB)
+    rcfg = dataclasses.replace(
+        cfg, max_epochs=2, limit_train_batches=6, limit_val_batches=2,
+        log_dir=os.path.join(work, "log"),
+        checkpoint=CheckpointConfig(directory=os.path.join(work, "ckpt_b"),
+                                    top_k=1, monitor="", every_n_epochs=0))
+    control = Trainer(dataclasses.replace(rcfg, train_id="control"),
+                      device=dev)
+    print(f"scratch init (seed {SEED}): pos_embed std "
+          f"{control.model.pos_embed.std().item():.5f} (flax 0.02), "
+          f"layer 0 qkv weight std "
+          f"{control.model.layer[0].attn.qkv.weight.std().item():.5f} "
+          f"(flax 1/sqrt(1024) = {1024 ** -0.5:.5f})")
+    h_control = control.fit(train, val, resume=False)
+    final = {k: p.detach().clone()
+             for k, p in control.state.model.named_parameters()}
+    final_step = control.state.step
+    del control
+    shutil.rmtree(os.path.join(rcfg.checkpoint.directory, "control"))
+    run_cfg = dataclasses.replace(rcfg, train_id="resumed")
+    h_killed = Trainer(run_cfg, device=dev).fit(KillAtBatch(train, 3), val,
+                                                resume=False)
+    peak_bytes = dir_bytes(rcfg.checkpoint.directory)
+    resumed = Trainer(run_cfg, device=dev)
+    h_resumed = resumed.fit(train, val, resume=True)
+    peak_bytes = max(peak_bytes, dir_bytes(rcfg.checkpoint.directory))
+    records = fit_records(run_cfg.log_dir, run_cfg.train_id)
+    marks = [r for r in records if "resumed_mid_epoch" in r]
+    preempted = [r for r in records if r.get("preempted")]
+    diff = max((p - final[k]).abs().max().item()
+               for k, p in resumed.state.model.named_parameters())
+    print(f"exact resume: control {[r['train_loss'] for r in h_control]}, "
+          f"killed {h_killed}, {preempted}, {marks}, resumed "
+          f"{[r['train_loss'] for r in h_resumed]}; global step "
+          f"{resumed.state.step} vs {final_step}; largest |parameter "
+          f"difference| {diff:.3e}; checkpoint bytes on disk at most "
+          f"{peak_bytes}")
+    if (h_killed or len(preempted) != 1 or preempted[0]["steps"] != 3
+            or len(marks) != 1 or marks[0]["start_batch"] != 3
+            or [r["epoch"] for r in h_resumed] != [1, 2]
+            or resumed.state.step != final_step or diff != 0.0):
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    shutil.rmtree(rcfg.checkpoint.directory)
     return launches
 
 
@@ -1100,7 +1330,10 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    import safetensors
+
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"safetensors {safetensors.__version__}, "
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
@@ -1140,9 +1373,11 @@ def main() -> int:
                                      data, layers, dev)
         phase_train_compare(attn, pe, create_model, Trainer, state_dict, data,
                             layers, dev)
-        flash_train = phase_train_throughput(torch, attn, pe, create_model,
-                                             Trainer, state_dict, data, layers,
-                                             dev)
+        flash_train, rates = phase_train_throughput(
+            torch, attn, pe, create_model, Trainer, state_dict, data, layers,
+            dev)
+        fit_launches = phase_fit(torch, attn, create_model, serve, data, pth,
+                                 work, layers, dev, rates[("fused", 8)])
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -1153,9 +1388,11 @@ def main() -> int:
     kernels = [
         ("K1", "slab_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:455", {"serve": serve_launches,
-                              "train": train_launches[0]}, "train"),
+                              "train": train_launches[0],
+                              "fit": fit_launches[0]}, "fit"),
         ("K2", "slab_attention_bwd", "slab_attention_bwd.cu",
-         "attention.py:482", {"train": train_launches[1]}, "train"),
+         "attention.py:482", {"train": train_launches[1],
+                              "fit": fit_launches[1]}, "fit"),
         ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),

@@ -3,11 +3,11 @@ originals give.
 
 The port imports nothing of the JAX package: it keeps its own ``config.py``,
 ``data/{folder,loader,native_loader,canvas_cache}.py``,
-``utils/mean_std.py`` and the HF checkpoint converter of ``utils/convert.py``.
-Here both sides run on the same inputs and must agree exactly: every
-preset and model config field for field, the ImageFolder scan, the seeded
-split, the loader's batches, the dataset statistics and the converted
-parameter tree.
+``utils/mean_std.py``, ``utils/logging.py`` and the HF checkpoint converter
+of ``utils/convert.py``. Here both sides run on the same inputs and must
+agree exactly: every preset and model config field for field, the
+ImageFolder scan, the seeded split, the loader's batches, the dataset
+statistics, the converted parameter tree and the run logger.
 
 :func:`port_config` is the one bridge the other ``test_torch_*`` files use to
 hand a JAX-package config to the port: the port's dataclass of the same name,
@@ -28,12 +28,14 @@ from touhouimageclassification_tpu.data import canvas_cache as jcache
 from touhouimageclassification_tpu.data import folder as jfolder
 from touhouimageclassification_tpu.data import loader as jloader
 from touhouimageclassification_tpu.utils import convert as jconvert
+from touhouimageclassification_tpu.utils import logging as jlogging
 from touhouimageclassification_tpu.utils import mean_std as jstats
 from touhouimageclassification_tpu_torch.data import canvas_cache as pcache
 from touhouimageclassification_tpu_torch.data import folder as pfolder
 from touhouimageclassification_tpu_torch.data import image_loader
 from touhouimageclassification_tpu_torch.data import loader as ploader
 from touhouimageclassification_tpu_torch.utils import convert as pconvert
+from touhouimageclassification_tpu_torch.utils import logging as plogging
 from touhouimageclassification_tpu_torch.utils import mean_std as pstats
 
 torch.set_num_threads(1)
@@ -221,3 +223,17 @@ def test_torch_vit_to_flax_equals_jax(tmp_path, wrap, classes):
         jconvert._strip_prefixes(ref_sd).keys()
     _assert_same_tree(pconvert.torch_vit_to_flax(port_sd, classes),
                       jconvert.torch_vit_to_flax(ref_sd, classes))
+
+
+def test_run_logger_equals_jax(tmp_path):
+    """utils/logging.py: the same handlers, levels and format, writing
+    <log_dir>/<name>.log (one process: no per-process suffix)."""
+    loggers = [module.get_logger(f"copy_{tag}", str(tmp_path / tag))
+               for module, tag in ((jlogging, "jax"), (plogging, "port"))]
+    shape = [[(type(h).__name__, h.level, h.formatter._fmt)
+              for h in logger.handlers] for logger in loggers]
+    assert shape[0] == shape[1]
+    for logger, tag in zip(loggers, ("jax", "port")):
+        logger.info("line")
+        assert (tmp_path / tag / f"copy_{tag}.log").read_text().endswith(
+            f"copy_{tag} - INFO - line\n")

@@ -147,7 +147,9 @@ def test_init_never_falls_back_to_cpu(tiny_cli, dataset, monkeypatch):
 
 
 def test_init_rejects_what_the_port_cannot_load(tiny_cli, dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet loadable"):
+    """A directory is a serving export only with its serving_meta.json
+    (``test_torch_cli.py`` serves a real one); --dp > 1 is not ported."""
+    with pytest.raises(FileNotFoundError, match="serving_meta.json"):
         serve.init(modelt="vit-base", weights=str(tmp_path), data_dir=dataset,
                    device="cpu")
     with pytest.raises(NotImplementedError, match="--dp"):

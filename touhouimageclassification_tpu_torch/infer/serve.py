@@ -11,8 +11,9 @@ differs:
 - ``stage`` pads a batch in pinned host memory and starts a non-blocking
   upload, so the upload of batch i+1 overlaps the predict of batch i;
 - weights are HF-layout torch checkpoints (``.pth``/``.pt``/``.bin``/
-  ``.safetensors``); Orbax params directories are JAX's format and are not
-  loadable yet.
+  ``.safetensors``) or the port's serving export (a directory of
+  ``params.safetensors`` and ``serving_meta.json``, written by the training
+  CLIs' ``--transform``); the JAX package's Orbax exports are not loadable.
 
 CLI: ``python -m touhouimageclassification_tpu_torch.infer.serve --model
 vit-large --image data/testset --weights <ckpt> --output result/x.csv --full``
@@ -20,18 +21,20 @@ vit-large --image data/testset --weights <ckpt> --output result/x.csv --full``
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..config import FILTERED_DATA_DIR
+from ..config import FILTERED_DATA_DIR, ViTConfig
 from ..data.folder import IMG_EXTENSIONS, get_class_to_idx
 from ..device import resolve_device
 from ..models import create_model
 from ..models.vit import ViT
 from ..ops.augment import normalize, resize
+from ..train.checkpoint import SERVING_META, SERVING_PARAMS, load_params
 from ..utils.convert import load_vit_weights
 from ..utils.mean_std import get_mean_std
 
@@ -130,9 +133,10 @@ def init(args=None, modelt=None, weights=None,
          data_dir: str = FILTERED_DATA_DIR, device="cuda") -> Predictor:
     """Build a Predictor: class map + weights + normalisation statistics.
 
-    ``weights`` is an HF-layout torch checkpoint. Serving directories
-    (Orbax params + ``serving_meta.json``) are JAX's export format and are
-    not loadable by the port yet."""
+    ``weights`` is an HF-layout torch checkpoint, or a serving export
+    directory: there, as in the JAX package's ``init``, the ViT config, the
+    class map and the mean and std come from ``serving_meta.json`` and the
+    parameters from ``params.safetensors``."""
     if args:
         modelt = args.model
         weights = getattr(args, "weights", None)
@@ -148,12 +152,13 @@ def init(args=None, modelt=None, weights=None,
     if weights is None:
         raise ValueError(f"the port has no default checkpoint for {modelt!r}; "
                          "pass --weights")
+    if os.path.isdir(weights):
+        return _init_export(weights, data_dir, device)
     if not weights.endswith(TORCH_CKPT_EXTS):
-        raise NotImplementedError(
-            f"{weights}: Orbax params directories (and their "
-            "serving_meta.json) are not yet loadable by the port; pass a "
-            ".pth/.pt/.bin/.safetensors HF-layout checkpoint (the port's "
-            "safetensors export is ROADMAP.md queue 1, item 6)")
+        raise ValueError(
+            f"{weights}: expected an HF-layout .pth/.pt/.bin/.safetensors "
+            f"checkpoint or a serving export directory ({SERVING_META} + "
+            f"{SERVING_PARAMS})")
 
     class_to_idx = get_class_to_idx(data_dir)
     model = create_model(mt, num_classes=len(class_to_idx), device=device)
@@ -162,6 +167,32 @@ def init(args=None, modelt=None, weights=None,
     mean, std = get_mean_std(data_dir, image_size)
     return Predictor(model=model, class_to_idx=class_to_idx,
                      image_size=image_size, mean=mean, std=std, device=device)
+
+
+def _init_export(export_dir: str, data_dir: str,
+                 device: torch.device) -> Predictor:
+    """A Predictor on a serving export directory (``--transform``): the
+    ViT config, the mean and std and (when the export has it) the class map
+    from its meta."""
+    missing = [name for name in (SERVING_META, SERVING_PARAMS)
+               if not os.path.exists(os.path.join(export_dir, name))]
+    if missing:
+        raise FileNotFoundError(
+            f"{export_dir} is not a serving export: no {' or '.join(missing)} "
+            "(write one with a training CLI's --transform)")
+    with open(os.path.join(export_dir, SERVING_META)) as f:
+        meta = json.load(f)
+    if meta.get("class_to_idx"):
+        class_to_idx = {k: int(v) for k, v in meta["class_to_idx"].items()}
+    else:
+        class_to_idx = get_class_to_idx(data_dir)
+    model = ViT(ViTConfig(**meta["vit_config"]), device=device)
+    model.load_state_dict(load_params(os.path.join(export_dir,
+                                                   SERVING_PARAMS)))
+    size = model.cfg.image_size
+    return Predictor(model=model, class_to_idx=class_to_idx,
+                     image_size=(size, size), mean=np.asarray(meta["mean"]),
+                     std=np.asarray(meta["std"]), device=device)
 
 
 def _judge_canvas_cache(image_dir: str, image_size: tuple[int, int],

@@ -30,6 +30,16 @@ attention probabilities of the plain attention. As in JAX, ``'fused'`` with
 and ``'xla_remat'`` refuse attention dropout. ``remat=True``
 recomputes each encoder layer in the backward (``torch.utils.checkpoint``);
 the ``'dots'`` policy is not ported.
+
+A new model holds flax's initialisation of the JAX model, drawn from a
+``torch.Generator`` on the parameters' device seeded with ``seed``: every
+Dense kernel (the patch projection, qkv, out, fc1, fc2 and the head) by
+``lecun_normal``, a normal truncated at +-2 standard deviations and scaled
+so that its standard deviation is 1/sqrt(fan_in), with zero biases; a zero
+class token; the position embedding from normal(0, 0.02); LayerNorm scale 1
+and bias 0. The JAX package draws from ``jax.random``, so the two agree in
+distribution, not bit for bit; one seed gives the same weights on one
+device type.
 """
 from __future__ import annotations
 
@@ -45,8 +55,24 @@ from ..ops.gelu import gelu
 from ..ops.patch_embed import patch_embed
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# flax's truncated_normal(-2, 2) has standard deviation 0.8796...; lecun_normal
+# divides by it so that the drawn standard deviation is 1/sqrt(fan_in)
+_TRUNCATED_STD = 0.87962566103423978
 ATTENTION_IMPLS = ("fused", "flash", "xla", "xla_remat")
 PATCH_EMBED_IMPLS = ("xla", "pallas")
+
+
+def _truncated_normal_(t: torch.Tensor, std: float,
+                       gen: torch.Generator) -> None:
+    """Fill ``t`` with ``std`` times a standard normal truncated to
+    [-2, 2], as ``jax.random.truncated_normal(key, -2, 2)``: draws outside
+    the interval are drawn again."""
+    x = torch.randn(t.shape, generator=gen, device=t.device)
+    bad = x.abs() > 2
+    while bad.any():
+        x[bad] = torch.randn(int(bad.sum()), generator=gen, device=t.device)
+        bad = x.abs() > 2
+    t.copy_(x.mul_(std))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -179,10 +205,10 @@ class ViT(nn.Module):
     f32 logits. ``embed`` and ``encode`` stay split as in the JAX model.
     ``param_dtype`` (default: ``compute_dtype``) is the storage type of the
     patch embedding, the encoder's projections and the class and position
-    embeddings."""
+    embeddings. ``seed`` seeds the initialisation (:meth:`reset_parameters`)."""
 
     def __init__(self, cfg: ViTConfig, compute_dtype: str = "bfloat16",
-                 device=None, param_dtype: str | None = None):
+                 device=None, param_dtype: str | None = None, seed: int = 0):
         super().__init__()
         param_dtype = param_dtype or compute_dtype
         for name, value in (("compute_dtype", compute_dtype),
@@ -209,6 +235,25 @@ class ViT(nn.Module):
                                   device=device)
         self.head = nn.Linear(cfg.hidden_size, cfg.num_classes,
                               dtype=torch.float32, device=device)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        """flax's initialisation of the JAX model (module docstring), drawn
+        in module order from a generator seeded with ``seed``."""
+        gen = torch.Generator(device=self.pos_embed.device).manual_seed(seed)
+        for module in self.modules():
+            if isinstance(module, nn.LayerNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.Linear):
+                _truncated_normal_(module.weight,
+                                   module.in_features ** -0.5 / _TRUNCATED_STD,
+                                   gen)
+                nn.init.zeros_(module.bias)
+        nn.init.zeros_(self.cls_token)
+        self.pos_embed.copy_(0.02 * torch.randn(
+            self.pos_embed.shape, generator=gen, device=self.pos_embed.device))
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """Images (B, S, S, 3) -> positioned tokens (B, N+1, hidden)."""

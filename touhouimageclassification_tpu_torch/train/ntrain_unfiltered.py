@@ -1,0 +1,7 @@
+"""Ablation launcher: the ``TIC.ViT.ntrain_unfiltered`` equivalent, one preset
+toggle off the main recipe (counterpart of the JAX package's
+``train/ntrain_unfiltered.py``)."""
+from .ntrain import main
+
+if __name__ == "__main__":
+    main(preset="nvit_unfiltered")
