@@ -3,8 +3,8 @@
 
 Drives the port's serve path and its train step
 (``touhouimageclassification_tpu_torch``) at the full width and depth of
-ViT-Large/16 at 224x224 with random weights made from a seed, through the
-entry points a user would call: with the default configuration
+ViT-Large/16 at 224x224, and of ResNet-152 at 256x256, with random weights
+made from a seed, through the entry points a user would call: with the default configuration
 (``attention_impl='fused'``, ``patch_embed_impl='xla'``) and with
 ``attention_impl='flash'`` + ``patch_embed_impl='pallas'``. Phases, each
 fatal on failure:
@@ -61,7 +61,21 @@ fatal on failure:
     model; a profiled ``Trainer.fit``; then exact resume from the seeded
     scratch initialisation: a run killed by SIGTERM after batch 3 and
     resumed must end with every parameter equal to an uninterrupted run's.
-    Prints the seconds and bytes of a ViT-L save, a restore and the export.
+    Prints the seconds and bytes of a ViT-L save, a restore and the export;
+12. the ResNet family and the pipeline: ResNet-152 at 256x256 (the
+    ``resnet152`` preset: SGD 5e-2, step schedule, batch 80, bf16 over f32)
+    in bf16 against the same weights in f32 (BN calibrated on the batch),
+    every conv on ``channels_last`` on the card, bucket-1 p50 and bucket-64
+    img/s, 10 staged train steps (img/s, peak memory), a NaN step skipped
+    with its BN statistics kept, profiles of a forward and a step; the
+    ``resnet_train`` CLI for one epoch through ``HostImageLoader``,
+    ``--transform`` and serve ``--full`` from the export; then, with phase
+    11's ViT-L export as the judge, ``infer.filter --model`` (the kept tree
+    equals the judge CSV's correct rows), ``analysis.acc.run_sweep`` over
+    the ViT-L and ResNet-152 exports, and the web app called in process
+    (POSTs of 3 and 65 images, then 8 concurrent single-image requests that
+    the daemon coalesces into fewer device calls), with K1's launches
+    counted on each of the three.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -71,6 +85,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -79,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -101,6 +117,16 @@ TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2), "float32": dict(atol=1e-4, rtol=1
 # weights give logits of order 1, so 5e-2 is a few percent of their spread;
 # argmax must agree wherever the top-2 margin exceeds it.
 LOGIT_TOL = 5e-2
+# ResNet-152 at 256^2 in bf16 over f32 weights against the same weights in
+# f32 (BN calibrated on the batch). One block on one input: its convs, BNs
+# and add each round to bf16 (2^-8 relative), so the block's output
+# differs in norm by well under 2%. End to end a random-init ResNet-152
+# amplifies those roundings block after block (the JAX package's bf16 model
+# is as far from its f32 model: tens of percent of the largest logit), so
+# the end-to-end bound only catches a broken forward; the block bound holds
+# the arithmetic.
+RESNET_BLOCK_TOL = 2e-2
+RESNET_LOGIT_TOL = 0.6
 # One ViT-L train step, 'xla' (autograd of the plain attention, which rounds
 # dP to bf16 where K2 keeps it in f32) or 'flash' + 'pallas' (the plain
 # backward recomputed from bf16 scores) vs 'fused' (K1 + K2): the largest
@@ -1103,7 +1129,8 @@ def fit_records(log_dir: str, train_id: str) -> list[dict]:
 def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
               work: str, layers: int, dev, staged_rate: float):
     """The training loop on the card (see the module docstring, phase 11).
-    Returns the K1 and K2 launches of the ``ntrain`` fit."""
+    Returns the K1 and K2 launches of the ``ntrain`` fit and the path of its
+    ViT-L serving export."""
     from touhouimageclassification_tpu_torch.config import (PRESETS,
                                                             CheckpointConfig)
     from touhouimageclassification_tpu_torch.data import (get_class_to_idx,
@@ -1218,8 +1245,8 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
         raise AssertionError("serve from the export disagrees with the "
                              "restored model")
     print(f"serve --weights <export>: {len(rows[0]) - 1} predictions, equal "
-          "to a Predictor on the restored model")
-    shutil.rmtree(export)
+          "to a Predictor on the restored model (the export stays for phase "
+          "12's judge)")
     del model, pred, restored, state
     os.chdir(cwd)
 
@@ -1282,7 +1309,358 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
             or resumed.state.step != final_step or diff != 0.0):
         raise AssertionError("the resumed run is not the uninterrupted one")
     shutil.rmtree(rcfg.checkpoint.directory)
+    return launches, export
+
+
+def calibrate_bn(torch, model, images) -> None:
+    """Set every BatchNorm's running statistics to the batch statistics of
+    ``images`` (one train-mode forward with momentum 0, no gradient), so
+    that the eval-mode model normalises its activations as training would
+    leave it; the momentum goes back to the class's (flax's 0.9)."""
+    from touhouimageclassification_tpu_torch.models.resnet import BatchNorm2d
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(images)
+    for m in norms:
+        del m.momentum
+    model.eval()
+
+
+def resnet_serve_and_train(torch, serve, create_model, Trainer, data: str,
+                           data_mean, data_std, dev) -> dict:
+    """ResNet-152 at 256x256 (phase 12, first half): bf16 logits against
+    the same weights in f32, every conv on channels_last, bucket-1 p50 and
+    bucket-64 img/s; then 10 steps of the resnet152 preset at batch 80 on
+    staged batches (img/s, peak memory), a NaN step skipped with the BN
+    statistics kept, and a profile of one step. Returns the numbers."""
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.models.resnet import (Bottleneck,
+                                                                   Conv2d)
+
+    out = {}
+    rng = np.random.default_rng(SEED + 12)
+    imgs = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    x = torch.from_numpy(imgs[:16]).to(dev).float() / 255.0
+    x = (x - torch.tensor(data_mean, device=dev).float()) / torch.tensor(
+        data_std, device=dev).float()
+    m32 = create_model("resnet152", num_classes=NUM_CLASSES, device=dev,
+                       compute_dtype="float32", param_dtype="float32",
+                       seed=SEED)
+    calibrate_bn(torch, m32, x)
+    m16 = create_model("resnet152", num_classes=NUM_CLASSES, device=dev,
+                       seed=SEED)
+    m16.load_state_dict(m32.state_dict())
+    m16.eval()
+    seen, blocks = [], []
+
+    def on_conv(module, args):
+        seen.append(args[0].is_contiguous(memory_format=torch.channels_last)
+                    and module.weight.is_contiguous(
+                        memory_format=torch.channels_last)
+                    and args[0].is_cuda)
+
+    def on_block(module, args, output):
+        blocks.append((module, args[0], output))
+
+    hooks = [m.register_forward_pre_hook(on_conv) for m in m16.modules()
+             if isinstance(m, Conv2d)]
+    hooks += [m.register_forward_hook(on_block)
+              for m in m16.modules() if isinstance(m, Bottleneck)]
+    twins = dict(zip((m for m in m16.modules() if isinstance(m, Bottleneck)),
+                     (m for m in m32.modules() if isinstance(m, Bottleneck))))
+    with torch.inference_mode():
+        ref = m32(x[:8])
+        got = m16(x[:8])
+        # each block in bf16 against the same block in f32 on the same
+        # input: 3 convs, 3 BNs and the add, rounded to bf16 at each
+        worst = max((((out.float() - twins[blk](inp.float())).norm()
+                      / twins[blk](inp.float()).norm()).item()
+                     for blk, inp, out in blocks))
+    for h in hooks:
+        h.remove()
+    if len(seen) != 155 or not all(seen) or len(blocks) != 50:
+        raise AssertionError(f"convs on channels_last on the card: "
+                             f"{sum(seen)} of {len(seen)}, expected 155; "
+                             f"{len(blocks)} blocks")
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"ResNet-152 256x256 B 8, bf16 over f32 weights vs f32 on the card "
+          f"(BN calibrated on 16 images): each of the 50 blocks on its own "
+          f"input, worst relative difference in norm {worst:.4e} (bound "
+          f"{RESNET_BLOCK_TOL}); end to end max |d logit| {diff:.4e}, largest "
+          f"|logit| {scale:.4f} (bound {RESNET_LOGIT_TOL} of it); all 155 "
+          f"convs on channels_last")
+    if (not torch.isfinite(got).all() or worst > RESNET_BLOCK_TOL
+            or diff > RESNET_LOGIT_TOL * scale):
+        raise AssertionError("ResNet-152 bf16 vs f32 disagreement")
+    del m32
+
+    pred = serve.Predictor(model=m16, class_to_idx={
+        f"c{i}": i for i in range(NUM_CLASSES)}, image_size=(256, 256),
+        mean=data_mean, std=data_std, device=dev)
+    for _ in range(5):
+        pred.predict_array(imgs[:1])
+    lat = []
+    for i in range(60):
+        t0 = time.perf_counter()
+        pred.predict_array(imgs[i % 64:i % 64 + 1])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(2):
+        pred.predict_array(imgs)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pred.predict_array(imgs)
+    out["serve_p50_ms"] = statistics.median(lat)
+    out["serve_img_s"] = 10 * 64 / (time.perf_counter() - t0)
+    print(f"serve, ResNet-152 bf16 256x256: bucket-1 p50 "
+          f"{out['serve_p50_ms']:.3f} ms (60 requests), bucket-64 "
+          f"{out['serve_img_s']:.2f} img/s (10 batches)")
+    profile(torch, lambda: pred.predict_array(imgs),
+            "ResNet-152 serve bucket-64 forward")
+    del pred, m16
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(PRESETS["resnet152"], data_dir=data, seed=SEED)
+    trainer = Trainer(cfg, device=dev)
+    if trainer.out_size != (256, 256) or trainer.model.cfg.depth != 152:
+        raise AssertionError(f"resnet152 preset: {trainer.out_size}")
+    state = trainer.init_state()
+    b = cfg.global_batch_size
+    batch = trainer.stage({
+        "image": rng.integers(0, 256, (b, 256, 256, 3), dtype=np.uint8),
+        "label": rng.integers(0, NUM_CLASSES, b).astype(np.int32),
+        "mask": np.ones(b, bool)})
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    count = state.optimizer.count
+    t0 = time.perf_counter()
+    for _ in range(10):
+        m = trainer.train_step(state, batch)
+    secs = time.perf_counter() - t0
+    out["train_img_s"] = 10 * b / secs
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"ResNet-152 train, resnet152 preset (SGD 5e-2, step schedule, bf16 "
+          f"over f32), batch {b} at 256x256: {out['train_img_s']:.2f} img/s "
+          f"({1e3 * secs / 10:.2f} ms/step, 10 steps), peak memory "
+          f"{out['train_peak_gib']:.2f} GiB, last loss {m['loss']:.4f}")
+    if not np.isfinite(m["loss"]) or state.optimizer.count != count + 10:
+        raise AssertionError("ResNet-152 train steps not finite or skipped")
+    profile(torch, lambda: trainer.train_step(state, batch),
+            f"ResNet-152 batch-{b} step")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    count = state.optimizer.count
+    poisoned = dict(batch, image=batch["image"].float())
+    poisoned["image"][0, 0, 0, 0] = float("nan")
+    m = trainer.train_step(state, poisoned)
+    kept = all(torch.equal(v, before[k])
+               for k, v in state.model.state_dict().items())
+    print(f"ResNet-152 step fed a NaN pixel: loss {m['loss']}, skipped "
+          f"(optimizer count {state.optimizer.count} = {count}), parameters "
+          f"and all {sum('running' in k for k in before)} BN statistics "
+          f"unchanged: {kept}")
+    if np.isfinite(m["loss"]) or state.optimizer.count != count or not kept:
+        raise AssertionError("the NaN step was not skipped cleanly")
+    del trainer, state, batch, poisoned, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_cli(serve, data: str, work: str) -> tuple[str, dict]:
+    """``resnet_train`` (the resnet152 preset, ResNet-152 at 256x256, batch
+    80) for one epoch on the fixture through ``HostImageLoader``, then
+    ``--transform`` and serve ``--full`` from the export. Returns the export
+    and the epoch's record."""
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.train import resnet_train
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    argv = ["--data-dir", data, "--max-epochs", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    t0 = time.perf_counter()
+    trainer = resnet_train.main([*argv, "--no-resume"])
+    fit_secs = time.perf_counter() - t0
+    train_id = PRESETS["resnet152"].train_id
+    records = [r for r in fit_records("log", train_id) if "epoch" in r]
+    if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
+            "train_loss", "val_loss", "val_acc")):
+        raise AssertionError(f"resnet_train records {records}")
+    rec = records[0]
+    steps = trainer.state.step
+    print(f"resnet_train, 1 epoch: {steps} steps at batch 80, "
+          f"{fit_secs:.2f} s with the model build; record {json.dumps(rec)}")
+    del trainer
+    export = os.path.join(work, "export_resnet")
+    resnet_train.main([*argv, "--transform", export])
+    with open(os.path.join(export, "serving_meta.json")) as f:
+        meta = json.load(f)
+    if meta["resnet_config"]["depth"] != 152 or "vit_config" in meta:
+        raise AssertionError(f"ResNet export meta {meta}")
+    shutil.rmtree("checkpoint")
+    out_csv = os.path.join(work, "judge_resnet.csv")
+    serve.main(["--model", "resnet", "--weights", export, "--image", data,
+                "--data-dir", data, "--output", out_csv, "--full",
+                "--canvas-cache", "off"])
+    with open(out_csv, newline="") as f:
+        rows = list(csv.reader(f))
+    if len(rows) - 1 != NUM_CLASSES * PER_CLASS:
+        raise AssertionError(f"serve from the ResNet export: {len(rows) - 1} "
+                             "rows")
+    print(f"serve --model resnet --weights <export> --full: {len(rows) - 1} "
+          "CSV rows")
+    os.chdir(cwd)
+    return export, rec
+
+
+def pipeline(torch, attn, data: str, work: str, vit_export: str,
+             resnet_export: str, layers: int) -> dict:
+    """The judge -> filter, the accuracy sweep and the web demo with the
+    phase-11 ViT-L export (K1 24 per forward), counts set to 0 before each;
+    returns K1's launches on each path."""
+    from touhouimageclassification_tpu_torch.analysis import acc
+    from touhouimageclassification_tpu_torch.infer import filter as filt
+    from touhouimageclassification_tpu_torch.web import app, runtime
+
+    n_images = NUM_CLASSES * PER_CLASS
+    forwards = -(-n_images // 64)
+    launches = {}
+
+    attn.launches = 0
+    judge_csv = os.path.join(work, "filter_judge.csv")
+    kept_dir = os.path.join(work, "filtered")
+    filt.main(["--model", "vit-large", "--weights", vit_export, "--image",
+               data, "-od", kept_dir, "--csv-file", judge_csv,
+               "--canvas-cache", "off"])
+    launches["filter"] = attn.launches
+    with open(judge_csv, newline="") as f:
+        correct = sorted(os.path.relpath(r["path"], data)
+                         for r in csv.DictReader(f) if r["correct"] == "True")
+    kept = sorted(os.path.relpath(os.path.join(root, name), kept_dir)
+                  for root, _d, files in os.walk(kept_dir) for name in files)
+    print(f"filter --model vit-large: kept {len(kept)} of {n_images}, the "
+          f"judge CSV's correct rows {len(correct)}; K1 launches "
+          f"{launches['filter']} ({layers} per forward x {forwards})")
+    if kept != correct or launches["filter"] != layers * forwards:
+        raise AssertionError("filter: kept tree or K1 launches")
+
+    attn.launches = 0
+    result_dir = os.path.join(work, "result")
+    rows = acc.run_sweep([("ViT_large", "vit-large", vit_export),
+                          ("ResNet152", "resnet", resnet_export)],
+                         test_dir=data, result_dir=result_dir, data_dir=data,
+                         device="cuda")
+    launches["acc"] = attn.launches
+    with open(os.path.join(result_dir, "acc.csv"), newline="") as f:
+        written = list(csv.DictReader(f))
+    print(f"acc.run_sweep: {rows}; acc.csv {written}; K1 launches "
+          f"{launches['acc']}")
+    if ([r["status"] for r in rows] != ["ok", "ok"] or len(written) != 2
+            or not all(0 <= r["acc"] <= 1 for r in rows)
+            or launches["acc"] != layers * forwards):
+        raise AssertionError("acc sweep")
+
+    runtime.MODEL_TYPE, runtime.WEIGHTS_PATH = "vit-large", vit_export
+    runtime.DATA_DIR, runtime.DEVICE = data, "cuda"
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def jpeg(i):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (96 + i % 5, 80, 3),
+                                     dtype=np.uint8)).save(buf, format="JPEG")
+        return ("files[]", f"{i}.jpg", buf.getvalue())
+
+    attn.launches = 0
+    calls = []
+    cards = []
+    t0 = time.perf_counter()
+    for n in (3, 65):
+        html = wsgi_post(app.app, [jpeg(i) for i in range(n)])
+        cards.append(html.count('<div class="card">'))
+        if "Model daemon: GPU" not in html:
+            raise AssertionError("web banner does not say GPU")
+    post_secs = time.perf_counter() - t0
+    predictor = runtime.daemon.predictor
+    original = predictor.predict_images
+
+    def counted(batch):
+        calls.append(len(batch))
+        return original(batch)
+
+    predictor.predict_images = counted
+    images = [Image.open(io.BytesIO(jpeg(i)[2])) for i in range(8)]
+    answers = [None] * 8
+    gate = threading.Barrier(8)
+
+    def ask(i):
+        gate.wait()
+        answers[i] = runtime.serve_batch([images[i]])[0]
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    launches["web"] = attn.launches
+    web_forwards = 1 + 2 + len(calls)
+    print(f"web app: POSTs of 3 and 65 images -> {cards} result cards in "
+          f"{post_secs:.2f} s (the first loads the model), banner GPU; 8 "
+          f"concurrent single-image requests -> {len(calls)} device calls of "
+          f"{calls} images; K1 launches {launches['web']} ({layers} per "
+          f"forward x {web_forwards})")
+    if (cards != [3, 65] or not all(a is not None for a in answers)
+            or sum(calls) != 8 or len(calls) >= 8
+            or launches["web"] != layers * web_forwards):
+        raise AssertionError("web app: cards, answers or coalescing")
+    with runtime.daemon.lock:
+        runtime.daemon.timer.cancel()
+        runtime.daemon.predictor = None
     return launches
+
+
+def wsgi_post(app, files) -> str:
+    """The HTML answer of ``app`` to a multipart POST of ``files`` (field,
+    filename, bytes) with EN labels."""
+    boundary = "smokeboundary"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="lang"'
+             f"\r\n\r\nEN".encode()]
+    for field, name, data in files:
+        parts.append(
+            f'--{boundary}\r\nContent-Disposition: form-data; name="{field}";'
+            f' filename="{name}"\r\nContent-Type: image/jpeg\r\n\r\n'.encode()
+            + data)
+    body = b"\r\n".join(parts) + f"\r\n--{boundary}--\r\n".encode()
+    environ = {"REQUEST_METHOD": "POST", "PATH_INFO": "/", "QUERY_STRING": "",
+               "CONTENT_LENGTH": str(len(body)),
+               "CONTENT_TYPE": f"multipart/form-data; boundary={boundary}",
+               "wsgi.input": io.BytesIO(body)}
+    status = []
+    html = b"".join(app(environ, lambda s, h: status.append(s))).decode()
+    if status != ["200 OK"]:
+        raise AssertionError(f"web app answered {status}")
+    return html
+
+
+def phase_resnet_pipeline(torch, attn, serve, create_model, Trainer,
+                          data: str, work: str, vit_export: str, data_mean,
+                          data_std, layers: int, dev):
+    """Phase 12: ResNet-152 serve and train, the resnet_train CLI, then the
+    filter, the accuracy sweep and the web demo (see the module
+    docstring). Returns K1's launches on the three pipeline paths."""
+    numbers = resnet_serve_and_train(torch, serve, create_model, Trainer,
+                                     data, data_mean, data_std, dev)
+    resnet_export, rec = resnet_cli(serve, data, work)
+    print(f"ResNet-152 fit epoch through HostImageLoader (PIL decode to 256x"
+          f"256, val excluded): {rec['images_per_second']:.2f} img/s; staged "
+          f"batch 80: {numbers['train_img_s']:.2f} img/s")
+    return pipeline(torch, attn, data, work, vit_export, resnet_export,
+                    layers)
 
 
 def profile(torch, fn, label: str):
@@ -1376,8 +1754,12 @@ def main() -> int:
         flash_train, rates = phase_train_throughput(
             torch, attn, pe, create_model, Trainer, state_dict, data, layers,
             dev)
-        fit_launches = phase_fit(torch, attn, create_model, serve, data, pth,
-                                 work, layers, dev, rates[("fused", 8)])
+        fit_launches, vit_export = phase_fit(
+            torch, attn, create_model, serve, data, pth, work, layers, dev,
+            rates[("fused", 8)])
+        pipeline_launches = phase_resnet_pipeline(
+            torch, attn, serve, create_model, Trainer, data, work, vit_export,
+            mean_std["mean"], mean_std["std"], layers, dev)
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -1389,7 +1771,8 @@ def main() -> int:
         ("K1", "slab_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:455", {"serve": serve_launches,
                               "train": train_launches[0],
-                              "fit": fit_launches[0]}, "fit"),
+                              "fit": fit_launches[0],
+                              **pipeline_launches}, "fit"),
         ("K2", "slab_attention_bwd", "slab_attention_bwd.cu",
          "attention.py:482", {"train": train_launches[1],
                               "fit": fit_launches[1]}, "fit"),

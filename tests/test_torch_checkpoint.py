@@ -175,6 +175,46 @@ def test_save_then_restore_is_bit_exact(tmp_path, opt):
     _assert_same(_snapshot(restored), _snapshot(state))
 
 
+def test_resnet_save_then_restore_is_bit_exact(tmp_path):
+    """A ResNet-18 (SGD with momentum, BN in train mode): three steps, save,
+    restore into a trainer built from another seed: parameters, the BN
+    running statistics, the momentum buffers and the counters equal; one
+    more step on each stays equal."""
+    from touhouimageclassification_tpu_torch.config import ResNetConfig
+    from touhouimageclassification_tpu_torch.models.resnet import ResNet
+
+    opt = OptimizerConfig(name="sgd", learning_rate=1e-2, momentum=0.9)
+
+    def trainer(seed):
+        cfg = TrainConfig(
+            train_id="ckpt_resnet", model_type="resnet18", global_batch_size=8,
+            seed=0, optimizer=opt,
+            augment=AugmentConfig(enable_augmentation=False),
+            mix=MixConfig(enable_mixup=False),
+            checkpoint=CheckpointConfig(directory=str(tmp_path / "c"),
+                                        async_save=False),
+            log_dir=str(tmp_path / "l"))
+        model = ResNet(ResNetConfig(depth=18, num_classes=4, image_size=16),
+                       "float32", "cpu", param_dtype="float32", seed=seed)
+        return Trainer(port_config(cfg), model=model, device="cpu")
+
+    batches = _batches(4)
+    src = trainer(0)
+    state = src.init_state(4)
+    for batch in batches[:3]:
+        src.train_step(state, src.stage(batch))
+    mgr = ck.CheckpointManager(port_config(src.cfg.checkpoint), "run")
+    mgr.save(1, state, {"val_acc": 0.5})
+    dst = trainer(1)
+    restored = mgr.restore(dst.init_state(4))
+    snap = _snapshot(restored)
+    assert sum("running" in k for k in snap[0]) == 2 * 20
+    _assert_same(snap, _snapshot(state))
+    src.train_step(state, src.stage(batches[3]))
+    dst.train_step(restored, dst.stage(batches[3]))
+    _assert_same(_snapshot(restored), _snapshot(state))
+
+
 def test_interrupted_save_is_not_a_checkpoint(tmp_path, monkeypatch):
     trainer = _trainer(tmp_path)
     state = trainer.init_state()

@@ -3,8 +3,8 @@ originals give.
 
 The port imports nothing of the JAX package: it keeps its own ``config.py``,
 ``data/{folder,loader,native_loader,canvas_cache}.py``,
-``utils/mean_std.py``, ``utils/logging.py`` and the HF checkpoint converter
-of ``utils/convert.py``. Here both sides run on the same inputs and must
+``utils/mean_std.py``, ``utils/logging.py``, ``utils/httpkit.py`` and the HF
+and torchvision checkpoint converters of ``utils/convert.py``. Here both sides run on the same inputs and must
 agree exactly: every preset and model config field for field, the
 ImageFolder scan, the seeded split, the loader's batches, the dataset
 statistics, the converted parameter tree and the run logger.
@@ -28,6 +28,7 @@ from touhouimageclassification_tpu.data import canvas_cache as jcache
 from touhouimageclassification_tpu.data import folder as jfolder
 from touhouimageclassification_tpu.data import loader as jloader
 from touhouimageclassification_tpu.utils import convert as jconvert
+from touhouimageclassification_tpu.utils import httpkit as jhttpkit
 from touhouimageclassification_tpu.utils import logging as jlogging
 from touhouimageclassification_tpu.utils import mean_std as jstats
 from touhouimageclassification_tpu_torch.data import canvas_cache as pcache
@@ -35,6 +36,7 @@ from touhouimageclassification_tpu_torch.data import folder as pfolder
 from touhouimageclassification_tpu_torch.data import image_loader
 from touhouimageclassification_tpu_torch.data import loader as ploader
 from touhouimageclassification_tpu_torch.utils import convert as pconvert
+from touhouimageclassification_tpu_torch.utils import httpkit as phttpkit
 from touhouimageclassification_tpu_torch.utils import logging as plogging
 from touhouimageclassification_tpu_torch.utils import mean_std as pstats
 
@@ -237,3 +239,56 @@ def test_run_logger_equals_jax(tmp_path):
         logger.info("line")
         assert (tmp_path / tag / f"copy_{tag}.log").read_text().endswith(
             f"copy_{tag} - INFO - line\n")
+
+
+@pytest.mark.parametrize("classes", [5, 9])
+def test_torch_resnet_to_flax_equals_jax(tmp_path, classes):
+    """A torchvision-layout ResNet-18 checkpoint (with num_batches_tracked),
+    ``module.``-wrapped, its head of 5 classes kept or drawn afresh for 9:
+    the same (params, batch_stats), leaf for leaf."""
+    from test_torch_resnet import torchvision_resnet18_sd
+
+    sd = {"module." + k: v for k, v in torchvision_resnet18_sd(5).items()}
+    path = str(tmp_path / "resnet.pth")
+    torch.save({"state_dict": sd}, path)
+    port = pconvert.torch_resnet_to_flax(pconvert._normalize_ckpt(path),
+                                         classes)
+    ref = jconvert.torch_resnet_to_flax(jconvert._normalize_ckpt(path),
+                                        classes)
+    for p, r in zip(port, ref):
+        _assert_same_tree(p, r)
+
+
+def _source_without_docstring(module):
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant))]
+    return ast.dump(tree)
+
+
+def test_httpkit_equals_jax():
+    """utils/httpkit.py: the same code (module docstring aside), and the
+    same parse of a multipart body, a cookie header and a query string."""
+    assert _source_without_docstring(phttpkit) == \
+        _source_without_docstring(jhttpkit)
+    body = (b"--b\r\nContent-Disposition: form-data; name=\"lang\"\r\n\r\nEN"
+            b"\r\n--b\r\nContent-Disposition: form-data; name=\"files[]\"; "
+            b"filename=\"a.jpg\"\r\nContent-Type: image/jpeg\r\n\r\nxyz\r\n"
+            b"--b--\r\n")
+    import io
+
+    parsed = []
+    for kit in (phttpkit, jhttpkit):
+        req = kit.Request({"REQUEST_METHOD": "POST", "QUERY_STRING": "a=1",
+                           "CONTENT_TYPE": "multipart/form-data; boundary=b",
+                           "CONTENT_LENGTH": str(len(body)),
+                           "HTTP_COOKIE": "session_uid=u1",
+                           "wsgi.input": io.BytesIO(body)})
+        parsed.append((req.form_value("lang"), req.files, req.cookies,
+                       req.query))
+    assert parsed[0] == parsed[1]
+    assert parsed[0] == ("EN", [("files[]", "a.jpg", b"xyz")],
+                         {"session_uid": "u1"}, {"a": ["1"]})

@@ -1,9 +1,9 @@
 """The PyTorch port stands apart from JAX and from the JAX package.
 
 Importing every module of the port, running a CPU predict and CPU train
-steps (the default model, and ``attention_impl='flash'`` with
-``patch_embed_impl='pallas'``) must leave ``jax``, ``flax`` and every module
-of ``touhouimageclassification_tpu`` unimported: the port keeps its own
+steps (the default model, ``attention_impl='flash'`` with
+``patch_embed_impl='pallas'``, and a ResNet) must leave ``jax``, ``flax``
+and every module of ``touhouimageclassification_tpu`` unimported: the port keeps its own
 copies of the numpy modules it needs. The port's sources hold no import of
 either, no library attention, no ``torch.compile``, and no ``try`` or
 environment switch near a kernel launch or a device choice (a launch that
@@ -56,6 +56,19 @@ for model_cfg, train_cfg in (
     state = t.init_state()
     m = t.train_step(state, t.stage(batch))
     assert np.isfinite(m["loss"]) and state.step == 1
+from touhouimageclassification_tpu_torch.models import create_model
+rn = create_model("resnet18", num_classes=3, compute_dtype="float32",
+                  param_dtype="float32", device="cpu")
+p = Predictor(model=rn, class_to_idx={"a": 0, "b": 1, "c": 2},
+              image_size=(32, 32), mean=np.full(3, 0.5),
+              std=np.full(3, 0.25), device=torch.device("cpu"))
+pred, conf = p.predict_array(np.zeros((2, 48, 48, 3), np.uint8))
+assert pred.shape == (2,) and np.isfinite(conf).all()
+t = Trainer(dataclasses.replace(PRESETS["resnet152"], global_batch_size=4),
+            model=rn.train(), device="cpu")
+state = t.init_state()
+m = t.train_step(state, t.stage(batch))
+assert np.isfinite(m["loss"]) and state.step == 1
 loaded = sorted(m for m in sys.modules if m in ("jax", "flax")
                 or m.split(".")[0] == "touhouimageclassification_tpu")
 print(len(mods), loaded)
@@ -98,16 +111,29 @@ def test_chip_smoke_imports_only_the_port():
 
 NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "device.py", "train/trainer.py", "train/optim.py",
-               "train/losses.py", "ops/augment.py", "ops/mixup.py")
+               "train/losses.py", "ops/augment.py", "ops/mixup.py",
+               "models/resnet.py", "web/runtime.py")
 
 
 def test_kernel_wrapper_has_no_fallback():
-    """The kernel wrappers (K1-K5), the build, the device choice and the
-    train modules that place tensors: no try/except to fall back with and no
-    environment switch. (The build reads CUDA_HOME to find nvcc, and
-    nothing else.)"""
+    """The kernel wrappers (K1-K5), the build, the device choice, the train
+    modules that place tensors, the ResNet and the web daemon: no try/except
+    to fall back with and no environment switch near a device. (The build
+    reads CUDA_HOME to find nvcc; the web daemon reads the TIC_WEB_* names
+    of its model, weights and dataset, never its device.)"""
     for module in NO_FALLBACK:
         src = (PORT / module).read_text()
-        assert "try:" not in src and "except" not in src, module
         environ = [line for line in src.splitlines() if "environ" in line]
-        assert all("CUDA_HOME" in line for line in environ), (module, environ)
+        if module == "web/runtime.py":
+            assert all("TIC_WEB_" in line and "DEVICE" not in line
+                       for line in environ), environ
+            src = src[src.index("def _worker_loop"):]
+            src = src[:src.index("daemon = ModelDaemon()")]
+            # the worker hands a failed batch's error to its waiters
+            assert src.count("except Exception as e:") == 1
+            src = src.replace("try:", "").replace(
+                "except Exception as e:", "")
+        else:
+            assert all("CUDA_HOME" in line for line in environ), (module,
+                                                                   environ)
+        assert "try:" not in src and "except" not in src, module

@@ -142,8 +142,8 @@ def test_unported_options_raise():
                                  attention_dropout_rate=0.1), device="cpu")
     with pytest.raises(ValueError, match="patch_embed_impl"):
         _vit(dataclasses.replace(TINY, patch_embed_impl="conv"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        create_model("resnet152", num_classes=10)
+    with pytest.raises(NotImplementedError, match="ResMoE"):
+        create_model("resmoe", num_classes=10)
     with pytest.raises(ValueError, match="Input spatial size"):
         _vit(TINY, device="cpu")(torch.zeros(1, 16, 16, 3))
 

@@ -15,9 +15,14 @@ Subpackages
 - ``ops``     attention in its slab, three-operand and (B, N, H, D) forms
   and the patch embedding (hand-written CUDA kernels + plain versions),
   GELU, augmentation, CutMix/MixUp, the kernel build
-- ``models``  the ViT family
-- ``utils``   weight conversion from the JAX parameter tree and HF checkpoints
-- ``train``   losses, optimizer, the NaN-guarded train step and evaluation
-- ``infer``   serving: Predictor, single-image serve, dataset judge CLI
+- ``models``  the ViT and ResNet families
+- ``utils``   weight conversion from the JAX parameter tree and from HF and
+  torchvision checkpoints; the stdlib WSGI kit of the web demo
+- ``train``   losses, optimizer, the NaN-guarded train step, evaluation, the
+  epoch loop, checkpoints and the training CLIs
+- ``infer``   serving: Predictor, single-image serve, dataset judge CLI, and
+  the judge-driven dataset filter
+- ``analysis`` the accuracy sweep over the pinned table of serving exports
+- ``web``     the web demo: the model daemon and its WSGI app
 - ``tools``   kernel measurements on a GPU (the K1/K2 A/B between checkouts)
 """

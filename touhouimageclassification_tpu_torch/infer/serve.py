@@ -10,10 +10,15 @@ differs:
 - weights go to the device once, in the model's compute dtype;
 - ``stage`` pads a batch in pinned host memory and starts a non-blocking
   upload, so the upload of batch i+1 overlaps the predict of batch i;
-- weights are HF-layout torch checkpoints (``.pth``/``.pt``/``.bin``/
-  ``.safetensors``) or the port's serving export (a directory of
-  ``params.safetensors`` and ``serving_meta.json``, written by the training
-  CLIs' ``--transform``); the JAX package's Orbax exports are not loadable.
+- the model is any family the port has (ViT, ResNet), dispatched by the
+  model type or by the export's meta;
+- weights are reference torch checkpoints (HF-layout ViT, torchvision-
+  layout ResNet; ``.pth``/``.pt``/``.bin``/``.safetensors``) or the port's
+  serving export (a directory of ``params.safetensors`` and
+  ``serving_meta.json``, written by the training CLIs' ``--transform``);
+  the JAX package's Orbax exports are not loadable. Without ``--weights``
+  the model type's path in :data:`model_checkpoints` is loaded, as in the
+  JAX package.
 
 CLI: ``python -m touhouimageclassification_tpu_torch.infer.serve --model
 vit-large --image data/testset --weights <ckpt> --output result/x.csv --full``
@@ -27,16 +32,27 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..config import FILTERED_DATA_DIR, ViTConfig
+from ..config import FILTERED_DATA_DIR
 from ..data.folder import IMG_EXTENSIONS, get_class_to_idx
 from ..device import resolve_device
-from ..models import create_model
-from ..models.vit import ViT
+from ..models import EXPORT_CONFIGS, create_model
 from ..ops.augment import normalize, resize
 from ..train.checkpoint import SERVING_META, SERVING_PARAMS, load_params
-from ..utils.convert import load_vit_weights
+from ..utils.convert import load_weights
 from ..utils.mean_std import get_mean_std
+
+# Default checkpoint registry (serving exports), the JAX package's
+# ``model_checkpoints`` path for path: a training run's ``--transform``
+# writes there
+model_checkpoints: dict[str, str] = {
+    "resnet": "checkpoint/serving/resnet152",
+    "vit-base": "checkpoint/serving/vit_base_finetune",
+    "vit-large": "checkpoint/serving/vit_large_finetune",
+    "nvit": "checkpoint/serving/nvit",
+    "resmoe": "checkpoint/serving/resmoe",
+}
 
 MODEL_CHOICES = ["resnet", "vit-base", "vit-large", "nvit", "resmoe",
                  "treevit"]
@@ -51,10 +67,11 @@ BUCKETS = (1, 8, 64)
 class Predictor:
     """Frozen-weights inference with padded batch buckets.
 
-    ``model`` is moved to ``device`` once, as it is (its compute dtype was
-    fixed when it was built)."""
+    ``model`` (a ViT or a ResNet, any module mapping NHWC images to logits)
+    is moved to ``device`` once, as it is (its compute dtype was fixed when
+    it was built), in eval mode."""
 
-    model: ViT
+    model: nn.Module
     class_to_idx: dict[str, int]
     image_size: tuple[int, int]
     mean: np.ndarray
@@ -133,10 +150,14 @@ def init(args=None, modelt=None, weights=None,
          data_dir: str = FILTERED_DATA_DIR, device="cuda") -> Predictor:
     """Build a Predictor: class map + weights + normalisation statistics.
 
-    ``weights`` is an HF-layout torch checkpoint, or a serving export
-    directory: there, as in the JAX package's ``init``, the ViT config, the
-    class map and the mean and std come from ``serving_meta.json`` and the
-    parameters from ``params.safetensors``."""
+    ``weights`` is a reference torch checkpoint of the model type's family
+    (served at its config's image size, ``get_image_size`` of the type: 224
+    for a ViT, 256 for a ResNet, with the dataset's mean and std), or a
+    serving export directory: there, as in the JAX package's ``init``, the
+    model's config, the class map and the mean and std come from
+    ``serving_meta.json`` and the parameters from ``params.safetensors``.
+    ``weights=None`` takes the model type's :data:`model_checkpoints`
+    path."""
     if args:
         modelt = args.model
         weights = getattr(args, "weights", None)
@@ -148,21 +169,28 @@ def init(args=None, modelt=None, weights=None,
                 "(ROADMAP.md queue 1, item 12)")
     device = resolve_device(device)
     mt = modelt.lower().replace("_", "-")
-    mt = _SERVE_TYPE_ALIASES.get(mt, mt)
     if weights is None:
-        raise ValueError(f"the port has no default checkpoint for {modelt!r}; "
-                         "pass --weights")
+        weights = model_checkpoints.get(mt)
+        if weights is None:
+            raise ValueError(f"No default checkpoint found for model type: "
+                             f"{mt}")
+        if not os.path.exists(weights):
+            raise FileNotFoundError(
+                f"{weights}: no checkpoint at the default path for {modelt!r} "
+                "(pass --weights, or write a serving export there with a "
+                "training CLI's --transform)")
+    mt = _SERVE_TYPE_ALIASES.get(mt, mt)
     if os.path.isdir(weights):
         return _init_export(weights, data_dir, device)
     if not weights.endswith(TORCH_CKPT_EXTS):
         raise ValueError(
-            f"{weights}: expected an HF-layout .pth/.pt/.bin/.safetensors "
-            f"checkpoint or a serving export directory ({SERVING_META} + "
+            f"{weights}: expected a .pth/.pt/.bin/.safetensors checkpoint "
+            f"or a serving export directory ({SERVING_META} + "
             f"{SERVING_PARAMS})")
 
     class_to_idx = get_class_to_idx(data_dir)
     model = create_model(mt, num_classes=len(class_to_idx), device=device)
-    model.load_state_dict(load_vit_weights(weights, model.cfg))
+    model.load_state_dict(load_weights(weights, model.cfg))
     image_size = (model.cfg.image_size, model.cfg.image_size)
     mean, std = get_mean_std(data_dir, image_size)
     return Predictor(model=model, class_to_idx=class_to_idx,
@@ -172,8 +200,8 @@ def init(args=None, modelt=None, weights=None,
 def _init_export(export_dir: str, data_dir: str,
                  device: torch.device) -> Predictor:
     """A Predictor on a serving export directory (``--transform``): the
-    ViT config, the mean and std and (when the export has it) the class map
-    from its meta."""
+    model's config (``vit_config`` or ``resnet_config``), the mean and std
+    and (when the export has it) the class map from its meta."""
     missing = [name for name in (SERVING_META, SERVING_PARAMS)
                if not os.path.exists(os.path.join(export_dir, name))]
     if missing:
@@ -186,7 +214,12 @@ def _init_export(export_dir: str, data_dir: str,
         class_to_idx = {k: int(v) for k, v in meta["class_to_idx"].items()}
     else:
         class_to_idx = get_class_to_idx(data_dir)
-    model = ViT(ViTConfig(**meta["vit_config"]), device=device)
+    key = next((k for k in EXPORT_CONFIGS if k in meta), None)
+    if key is None:
+        raise ValueError(f"{export_dir}/{SERVING_META} names no model config "
+                         f"({' or '.join(EXPORT_CONFIGS)})")
+    family, config = EXPORT_CONFIGS[key]
+    model = family(config(**meta[key]), device=device)
     model.load_state_dict(load_params(os.path.join(export_dir,
                                                    SERVING_PARAMS)))
     size = model.cfg.image_size

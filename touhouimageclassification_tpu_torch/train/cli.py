@@ -15,9 +15,10 @@ import json
 import math
 import os
 
-from ..config import TrainConfig, ViTConfig, get_image_size
+from ..config import TrainConfig, get_image_size
 from ..data import (get_class_to_idx, image_loader, random_split,
                     scan_image_folder)
+from ..models import model_config_key
 from ..utils.mean_std import get_mean_std
 from .checkpoint import (SERVING_META, SERVING_PARAMS, CheckpointManager,
                          save_params)
@@ -89,8 +90,10 @@ def build_loaders(cfg: TrainConfig, out_size: tuple[int, int]):
 def export_for_serving(cfg: TrainConfig, trainer: Trainer, out_path: str,
                        epoch: int | None = None) -> str:
     """--transform: training checkpoint -> ``<out_path>/params.safetensors``
-    (the model's parameters) and ``serving_meta.json`` (model type, epoch,
-    the training-time normalisation, the ViT config and the class map), from
+    (the model's state dict: parameters, and a ResNet's BatchNorm
+    statistics) and ``serving_meta.json`` (model type, epoch, the
+    training-time normalisation, the model's config under ``vit_config``
+    or ``resnet_config``, and the class map), from
     the best epoch by the monitored metric, or the latest, unless ``epoch``
     is given. The port's serve loads the directory."""
     ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id)
@@ -108,8 +111,9 @@ def export_for_serving(cfg: TrainConfig, trainer: Trainer, out_path: str,
         "std": list(cfg.augment.std),
         "normalize_stats": cfg.normalize_stats,
     }
-    if isinstance(getattr(trainer.model, "cfg", None), ViTConfig):
-        meta["vit_config"] = dataclasses.asdict(trainer.model.cfg)
+    key = model_config_key(trainer.model)
+    if key is not None:
+        meta[key] = dataclasses.asdict(trainer.model.cfg)
     try:
         meta["class_to_idx"] = get_class_to_idx(cfg.data_dir)
     except OSError:

@@ -12,8 +12,11 @@ As in the JAX package:
   (and, for models with dropout, the device's default generator for the
   forward);
 - the NaN guard: when the loss or the gradient norm is not finite the
-  optimizer update is skipped, parameters and optimizer state stay as they
-  were, and ``step`` still advances;
+  optimizer update is skipped, parameters, optimizer state and the model's
+  floating buffers (a ResNet's BatchNorm running statistics, which the
+  forward updates in place) stay as they were, and ``step`` still
+  advances. The buffers are copied on the device before the forward and put
+  back only for a skipped step;
 - loss, grad_norm and the task's scalars come back to the host in one
   device -> host copy (``_fetch_scalars``). That copy is the step's one sync,
   and the guard branches on the fetched values on the host;
@@ -52,7 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import TrainConfig
+from ..config import TrainConfig, get_image_size
 from ..device import resolve_device
 from ..models import create_model
 from ..ops.augment import build_augment_fn, build_eval_fn
@@ -119,7 +122,9 @@ class Trainer:
 
     ``model`` defaults to ``create_model(cfg.model_type)`` with f32
     parameters, ``cfg.compute_dtype`` compute and the initialisation drawn
-    from ``cfg.seed``. ``init_params`` is a state
+    from ``cfg.seed``; the image size is its config's ``image_size`` (else
+    ``get_image_size(cfg.model_type)``), and dropout is keyed per step only
+    where its config has a nonzero dropout rate. ``init_params`` is a state
     dict loaded into the model by :meth:`init_state` (for example from
     ``utils.convert.from_jax_params`` or ``load_vit_weights``); without it
     the model keeps the weights it has. ``param_filter`` maps a parameter's
@@ -139,15 +144,17 @@ class Trainer:
                                  seed=cfg.seed)
         self.model = model.to(self.device)
         self.task = task or ClassificationTask()
-        size = self.model.cfg.image_size
-        self.out_size = (size, size)
-        self.num_classes = self.model.cfg.num_classes
+        model_cfg = self.model.cfg
+        size = getattr(model_cfg, "image_size", None)
+        self.out_size = ((size, size) if isinstance(size, int)
+                         else get_image_size(cfg.model_type))
+        self.num_classes = model_cfg.num_classes
         self.augment_fn = build_augment_fn(cfg.augment, self.out_size)
         self.eval_transform = build_eval_fn(cfg.augment, self.out_size)
         self._init_params = init_params
         self.param_filter = param_filter
-        self._dropout = (self.model.cfg.dropout_rate > 0
-                         or self.model.cfg.attention_dropout_rate > 0)
+        self._dropout = any(getattr(model_cfg, name, 0) > 0 for name in (
+            "dropout_rate", "attention_dropout_rate"))
         self.state: TrainState | None = None
         self._metrics_path = os.path.join(cfg.log_dir, cfg.train_id,
                                           "metrics.jsonl")
@@ -225,6 +232,9 @@ class Trainer:
         images, labels, drop_seed = self._inputs(state, batch)
         model = state.model
         model.zero_grad(set_to_none=True)
+        buffers = [b for b in model.buffers() if b.is_floating_point()]
+        saved = (torch.cat([b.reshape(-1) for b in buffers]) if buffers
+                 else None)
         devices = [self.device.index] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices, enabled=self._dropout):
             if self._dropout:
@@ -238,6 +248,11 @@ class Trainer:
                                   **aux})
         if np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]):
             state.optimizer.update([p.grad for p in state.optimizer.params])
+        elif saved is not None:
+            with torch.no_grad():
+                for b, old in zip(buffers, saved.split(
+                        [b.numel() for b in buffers])):
+                    b.copy_(old.view_as(b))
         model.zero_grad(set_to_none=True)
         state.step += 1
         return metrics

@@ -1,18 +1,24 @@
-"""Weight conversion for the port's ViT.
+"""Weight conversion for the port's ViT and ResNet.
 
-- :func:`from_jax_params` maps a ViT parameter tree in the JAX package's
-  layout (numpy arrays, Dense kernels laid out (in, out)) onto the port's
-  state dict. It is the bridge every parity test uses, and the one layout
-  bridge of the loader.
-- :func:`load_vit_weights` reads a reference or HF checkpoint (``.pth``,
-  ``.pt``, ``.bin`` or ``.safetensors``), converts it to that tree with
-  :func:`torch_vit_to_flax`, then applies :func:`from_jax_params`. A
-  classifier whose size disagrees with the class count is re-initialised
-  there (``ignore_mismatched_sizes``).
+- :func:`from_jax_params` maps a parameter tree in the JAX package's layout
+  (numpy arrays, Dense kernels laid out (in, out), conv kernels HWIO) onto
+  the port's state dict: a ViT's ``params``, or a ResNet's ``(params,
+  {'batch_stats': ...})`` (or its variables dict). It is the bridge every
+  parity test uses, and the one layout bridge of the loaders.
+- :func:`load_vit_weights` reads a reference or HF ViT checkpoint
+  (``.pth``, ``.pt``, ``.bin`` or ``.safetensors``), converts it to that
+  tree with :func:`torch_vit_to_flax`, then applies
+  :func:`from_jax_params`; :func:`load_resnet_weights` does the same for a
+  reference or torchvision ResNet through :func:`torch_resnet_to_flax`
+  (which drops torchvision's ``num_batches_tracked``). A classifier whose
+  size disagrees with the class count is drawn afresh there, as the JAX
+  package draws it (``ignore_mismatched_sizes``). :func:`load_weights`
+  picks the loader by the model's config.
 
-``_strip_prefixes``, ``torch_vit_to_flax`` and ``_normalize_ckpt`` are the
-port's copies of the JAX package's (``utils/convert.py``), with the same
-names and results (``tests/test_torch_copies.py``).
+``_strip_prefixes``, ``torch_vit_to_flax``, ``torch_resnet_to_flax`` and
+``_normalize_ckpt`` are the port's copies of the JAX package's
+(``utils/convert.py``), with the same names and results
+(``tests/test_torch_copies.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..config import ViTConfig
+from ..config import ResNetConfig, ViTConfig
 from .pretrained import _load_state_dict
 
 
@@ -125,6 +131,70 @@ def torch_vit_to_flax(
     return params
 
 
+def torch_resnet_to_flax(
+    state_dict: Mapping[str, Any], num_classes: int
+) -> tuple[dict, dict]:
+    """Reference/torchvision ResNet state dict -> (params, batch_stats) for
+    the JAX package's ``ResNet``."""
+    sd = {k: _np(v) for k, v in _strip_prefixes(state_dict).items()}
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+
+    def put(tree, path, leaf):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+
+    def conv(src):
+        return {"kernel": sd[src + ".weight"].transpose(2, 3, 1, 0)}
+
+    def bn(src, dst):
+        put(params, dst + ("scale",), sd[src + ".weight"])
+        put(params, dst + ("bias",), sd[src + ".bias"])
+        put(stats, dst + ("mean",), sd[src + ".running_mean"])
+        put(stats, dst + ("var",), sd[src + ".running_var"])
+
+    put(params, ("stem_conv", "kernel"), conv("conv1")["kernel"])
+    bn("bn1", ("stem_bn",))
+
+    stage_blocks: dict[int, int] = {}
+    for k in sd:
+        m = re.match(r"layer(\d)\.(\d+)\.", k)
+        if m:
+            s, b = int(m.group(1)), int(m.group(2))
+            stage_blocks[s] = max(stage_blocks.get(s, 0), b + 1)
+
+    for s, nblocks in sorted(stage_blocks.items()):
+        for b in range(nblocks):
+            src = f"layer{s}.{b}"
+            dst = f"stage{s}_block{b}"
+            n_convs = 3 if f"{src}.conv3.weight" in sd else 2
+            for j in range(1, n_convs + 1):
+                put(params, (dst, f"conv{j}", "kernel"), conv(f"{src}.conv{j}")["kernel"])
+                bn(f"{src}.bn{j}", (dst, f"bn{j}"))
+            if f"{src}.downsample.0.weight" in sd:
+                put(params, (dst, "downsample_conv", "kernel"),
+                    conv(f"{src}.downsample.0")["kernel"])
+                bn(f"{src}.downsample.1", (dst, "downsample_bn"))
+
+    fc_w = sd.get("fc.weight")
+    if fc_w is not None and fc_w.shape[0] == num_classes:
+        params["head"] = {"kernel": fc_w.T, "bias": sd["fc.bias"]}
+    else:
+        rng = np.random.default_rng(0)
+        # feature width = channels of the last stage's final BN
+        last_stage = max(stage_blocks)
+        last_block = stage_blocks[last_stage] - 1
+        n_convs = 3 if f"layer{last_stage}.{last_block}.conv3.weight" in sd else 2
+        width = sd[f"layer{last_stage}.{last_block}.bn{n_convs}.weight"].shape[0]
+        params["head"] = {
+            "kernel": rng.normal(0.0, 0.02, (width, num_classes)).astype(np.float32),
+            "bias": np.zeros((num_classes,), np.float32),
+        }
+    return params, {"batch_stats": stats}
+
+
 def _normalize_ckpt(path):
     """Reference ``.pth`` path (or an already-loaded object) -> bare state
     dict. Tolerates the tuple checkpoints ``(model_sd, optim[, sched])`` and
@@ -154,11 +224,17 @@ def _norm(tree: Mapping[str, Any]) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(tree["scale"]), np.asarray(tree["bias"])
 
 
-def from_jax_params(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, torch.Tensor]:
-    """JAX ``ViT`` parameters -> state dict of the port's ``ViT(cfg)``.
+def from_jax_params(params, cfg: ViTConfig | ResNetConfig
+                    ) -> dict[str, torch.Tensor]:
+    """JAX ``ViT`` or ``ResNet`` variables -> state dict of the port's
+    model of ``cfg``.
 
-    Accepts the tree with or without its ``{"params": ...}`` wrapper. Raises
-    if the tree's depth disagrees with ``cfg.num_layers``."""
+    A ViT's tree is taken with or without its ``{"params": ...}`` wrapper;
+    raises if its depth disagrees with ``cfg.num_layers``. A ResNet's is
+    ``(params, {"batch_stats": ...})`` or ``{"params": ..., "batch_stats":
+    ...}`` (see :func:`_resnet_from_jax`)."""
+    if isinstance(cfg, ResNetConfig):
+        return _resnet_from_jax(params, cfg)
     params = params.get("params", params)
     depth = sum(k.startswith("layer_") for k in params)
     if depth != cfg.num_layers:
@@ -186,11 +262,82 @@ def from_jax_params(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, torc
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
 
 
+def _resnet_from_jax(variables, cfg: ResNetConfig) -> dict[str, torch.Tensor]:
+    """JAX ``ResNet`` parameters and ``batch_stats`` -> state dict of the
+    port's ``ResNet(cfg)``: HWIO conv kernels to OIHW, the head's kernel
+    transposed, BN ``scale``/``bias`` to ``weight``/``bias`` and
+    ``mean``/``var`` to ``running_mean``/``running_var``. Raises if the
+    tree's blocks disagree with ``cfg.depth``."""
+    from ..models.resnet import _LAYOUTS
+
+    if isinstance(variables, tuple):
+        params, state = variables
+    else:
+        params, state = variables["params"], variables
+    params = params.get("params", params)
+    stats = state.get("batch_stats", state)
+    block_cls, stages = _LAYOUTS[cfg.depth]
+    n_convs = 2 if block_cls.expansion == 1 else 3
+    found = [sum(k.startswith(f"stage{s + 1}_block") for k in params)
+             for s in range(4)]
+    if tuple(found) != tuple(stages):
+        raise ValueError(f"parameter tree has {found} blocks a stage, "
+                         f"ResNet-{cfg.depth} {list(stages)}")
+    sd: dict[str, np.ndarray] = {}
+
+    def conv(dst: str, tree) -> None:
+        sd[f"{dst}.weight"] = np.asarray(tree["kernel"]).transpose(3, 2, 0, 1)
+
+    def bn(dst: str, p, s) -> None:
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = _norm(p)
+        sd[f"{dst}.running_mean"] = np.asarray(s["mean"])
+        sd[f"{dst}.running_var"] = np.asarray(s["var"])
+
+    conv("conv1", params["stem_conv"])
+    bn("bn1", params["stem_bn"], stats["stem_bn"])
+    for s, blocks in enumerate(stages, start=1):
+        for b in range(blocks):
+            src, dst = f"stage{s}_block{b}", f"layer{s}.{b}"
+            p, st = params[src], stats[src]
+            for j in range(1, n_convs + 1):
+                conv(f"{dst}.conv{j}", p[f"conv{j}"])
+                bn(f"{dst}.bn{j}", p[f"bn{j}"], st[f"bn{j}"])
+            if "downsample_conv" in p:
+                conv(f"{dst}.downsample.0", p["downsample_conv"])
+                bn(f"{dst}.downsample.1", p["downsample_bn"],
+                   st["downsample_bn"])
+    sd["fc.weight"], sd["fc.bias"] = _dense(params["head"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
+def _read_ckpt(path: str):
+    if path.endswith(".safetensors"):
+        return _load_state_dict(path)
+    return _normalize_ckpt(path)
+
+
 def load_vit_weights(path: str, cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """HF-layout ViT checkpoint at ``path`` -> state dict of ``ViT(cfg)``,
     with a fresh head when the checkpoint's has another class count."""
-    if path.endswith(".safetensors"):
-        ckpt = _load_state_dict(path)
-    else:
-        ckpt = _normalize_ckpt(path)
-    return from_jax_params(torch_vit_to_flax(ckpt, cfg.num_classes), cfg)
+    return from_jax_params(torch_vit_to_flax(_read_ckpt(path),
+                                             cfg.num_classes), cfg)
+
+
+def load_resnet_weights(path: str, cfg: ResNetConfig
+                        ) -> dict[str, torch.Tensor]:
+    """Reference or torchvision ResNet checkpoint at ``path`` -> state dict
+    of ``ResNet(cfg)``, with the head drawn as the JAX package draws it
+    (``np.random.default_rng(0)``, normal(0, 0.02), zero bias) when ``fc``
+    has another class count."""
+    return from_jax_params(torch_resnet_to_flax(_read_ckpt(path),
+                                                cfg.num_classes), cfg)
+
+
+def load_weights(path: str, cfg: ViTConfig | ResNetConfig
+                 ) -> dict[str, torch.Tensor]:
+    """The checkpoint at ``path`` as a state dict of the model of ``cfg``
+    (:func:`load_resnet_weights` or :func:`load_vit_weights`)."""
+    if isinstance(cfg, ResNetConfig):
+        return load_resnet_weights(path, cfg)
+    return load_vit_weights(path, cfg)
