@@ -75,7 +75,15 @@ fatal on failure:
     the ViT-L and ResNet-152 exports, and the web app called in process
     (POSTs of 3 and 65 images, then 8 concurrent single-image requests that
     the daemon coalesces into fewer device calls), with K1's launches
-    counted on each of the three.
+    counted on each of the three;
+13. the kernel studies, the study path: the roofline peels of K1 and K2
+    (S5, ``tools.roofline_attn``: dma, layout, matmul, full) and the slab
+    null copy (S6, ``tools.bench_dma``: n197, n208, n256, img1, img2, img4,
+    img4n208, lanes) at ViT-L's width (N 197, C 1024, 16 heads, bf16) and
+    B 64 and 128, their launches counted; then every level and variant held
+    to its plain version (``dma``, ``layout`` and the copies bit for bit,
+    ``matmul`` and ``full`` within the bf16 bounds) and the ``full`` peels
+    to K1 and K2 bit for bit.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -164,6 +172,9 @@ PE_SWEEP_B = (1, 3, 63)
 PE_SWEEP_SHAPES = ((224, 224, 16), (224, 224, 8), (224, 160, 16))
 PE_SWEEP_D = (64, 768, 1000, 1024)
 PE_ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
+# The kernel studies' batches (phase 13): the reference studies' B 128 and
+# the B 64 of the K1 / K2 rows; the kernels line reports B 64.
+STUDY_BATCHES = (64, 128)
 # The model variants: the default configuration, the plain attention, and
 # the slice of the three-operand kernels ('flash' = K4, 'pallas' = K5).
 VARIANTS = {
@@ -1663,6 +1674,120 @@ def phase_resnet_pipeline(torch, attn, serve, create_model, Trainer,
                     layers)
 
 
+def phase_studies(torch, attn, study):
+    """Phase 13: the kernel studies S5 and S6 (see the module docstring).
+    Returns their entries of the kernels line: one per level and variant,
+    with its launches on the study path and its numbers at B 64."""
+    from touhouimageclassification_tpu_torch.tools import bench_dma, roofline_attn
+
+    n, c, h = 197, 1024, 16
+    study.reset_launches()
+    peels = roofline_attn.measure(STUDY_BATCHES, reps=30)
+    copies = bench_dma.measure(STUDY_BATCHES, reps=30)
+    launches = {**{f"fwd {k}": v for k, v in study.peel_launches.items()},
+                **{f"bwd {k}": v for k, v in study.peel_bwd_launches.items()},
+                **study.null_copy_launches}
+    for result in peels + copies:
+        print(json.dumps(result))
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"study path launched no {idle}")
+    print(f"study path launches (tools.roofline_attn and tools.bench_dma at "
+          f"B {STUDY_BATCHES}): {launches}")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bf16 = torch.bfloat16
+    errs, plain = {}, {}
+    for b in STUDY_BATCHES:
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(bf16)
+        g = torch.randn(b, n, c, generator=gen, device=dev).to(bf16)
+        runs = {f"fwd {lv}": (
+            lambda lv=lv: study.slab_attention_peel_forward(qkv, h, lv),
+            lambda lv=lv: study.peel_forward_reference(qkv, h, lv),
+            lv in ("dma", "layout")) for lv in study.PEEL_LEVELS}
+        runs.update({f"bwd {lv}": (
+            lambda lv=lv: study.slab_attention_peel_backward(qkv, g, h, lv),
+            lambda lv=lv: study.peel_backward_reference(qkv, g, h, lv),
+            lv == "dma") for lv in study.BWD_PEEL_LEVELS})
+        for variant, (_, _, rows) in study.NULL_COPY_VARIANTS.items():
+            slab = torch.randn(b, rows or n, 3 * c, generator=gen,
+                               device=dev).to(bf16)
+            runs[variant] = (
+                lambda slab=slab, v=variant: study.null_copy(slab, c, v),
+                lambda slab=slab, v=variant: study.null_copy_reference(
+                    slab, c, v), True)
+        for key, (kernel, reference, exact) in runs.items():
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = reference()
+            if exact and not torch.equal(out, ref):
+                raise AssertionError(f"{key}, B {b}: not bit-equal to its "
+                                     "plain version")
+            err = check_close(torch, f"{key} vs plain, B {b}", out, ref, bf16,
+                              verbose=False)[0]
+            if b == 64:
+                errs[key] = err
+                plain[key] = cuda_ms(reference)
+        if not torch.equal(study.slab_attention_peel_forward(qkv, h, "full"),
+                           attn.slab_attention_forward(qkv, h)):
+            raise AssertionError(f"fwd full, B {b}: differs from K1")
+        if not torch.equal(
+                study.slab_attention_peel_backward(qkv, g, h, "full"),
+                attn.slab_attention_backward(qkv, g, h)):
+            raise AssertionError(f"bwd full, B {b}: differs from K2")
+        if b == 64:
+            views = qkv.view(b, n, 3, h, c // h).unbind(2)
+            sdpa_ms = cuda_ms(lambda: sdpa(torch, *views))
+            leaf = qkv.detach().requires_grad_()
+            sdpa_bwd_ms = sdpa_backward_ms(
+                torch, (leaf,), leaf.view(b, n, 3, h, c // h).unbind(2), g)
+    print(f"S5 and S6 vs plain at B {STUDY_BATCHES}: dma, layout and the "
+          f"copies bit-equal; matmul and full within {TOL['bfloat16']} and "
+          f"{REL_TOL['bfloat16']} in norm; full bit-equal to K1 and K2; max "
+          f"|diff| at B 64 {errs}")
+
+    at64 = {r["batch"]: r for r in peels}[64]
+    copies64 = {r["batch"]: r for r in copies}[64]["variants"]
+    entries = []
+    for key in launches:
+        if key.startswith(("fwd", "bwd")):
+            way, level = key.split()
+            tool_key = f"{way}_{level}"
+            ms, device = at64["ms"][tool_key], at64["device_ms"][tool_key]
+            products = 0 if level in ("dma", "layout") else (
+                2 if way == "fwd" else 5)
+            elems = (4 if way == "fwd" else 7) * 64 * n * c
+            flops = products * 2 * 64 * h * n * n * (c // h)
+            library = {"fwd full": sdpa_ms, "bwd full": sdpa_bwd_ms}.get(
+                key, None if level == "matmul" else plain[key])
+            name = f"slab_attention_peel_{way}[{level}]"
+            source = f"slab_attention_{way}.cu"
+            replaces = "tools/roofline_attn.py:" + (
+                "95" if way == "fwd" else "154")
+            device_route = "mma"
+        else:
+            rec = copies64[key]
+            ms, device = rec["ms"], rec["device_ms"]
+            flops, elems = 0, 4 * 64 * rec["n"] * c
+            library = plain[key]
+            name, source = f"slab_null_copy[{key}]", "slab_null_copy.cu"
+            replaces = "tools/bench_dma.py:" + (
+                "67" if key == "lanes" else "51")
+            device_route = "cp.async"
+        bound_ms, bound_by = bound(flops, 2 * elems, bf16)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "touhouimageclassification_tpu_torch/csrc/" + source,
+            "device_routes": {"bfloat16": device_route},
+            "replaces": replaces, "launches": launches[key],
+            "launches_by_path": {"study": launches[key]},
+            "max_abs_err": errs[key], "ms": ms, "device_ms": device,
+            "plain_ms": plain[key], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library})
+    return entries
+
+
 def profile(torch, fn, label: str):
     """Device time by kernel of one ``fn()`` (a train step or a serve
     forward), and the device's busy share of its wall time."""
@@ -1702,6 +1827,7 @@ def main() -> int:
     from touhouimageclassification_tpu_torch.models import create_model
     from touhouimageclassification_tpu_torch.ops import _build
     from touhouimageclassification_tpu_torch.ops import attention as attn
+    from touhouimageclassification_tpu_torch.ops import attention_study as study
     from touhouimageclassification_tpu_torch.ops import patch_embed as pe
     from touhouimageclassification_tpu_torch.train.trainer import Trainer
     from touhouimageclassification_tpu_torch.utils.convert import load_vit_weights
@@ -1760,6 +1886,7 @@ def main() -> int:
         pipeline_launches = phase_resnet_pipeline(
             torch, attn, serve, create_model, Trainer, data, work, vit_export,
             mean_std["mean"], mean_std["std"], layers, dev)
+    study_kernels = phase_studies(torch, attn, study)
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -1800,7 +1927,8 @@ def main() -> int:
         "device_routes": device_routes[key],
         "replaces": ref + replaces, "launches": by_path[main_path],
         "launches_by_path": by_path, **stats[key]}
-        for key, name, source, replaces, by_path, main_path in kernels]}))
+        for key, name, source, replaces, by_path, main_path in kernels]
+        + study_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,6 +57,11 @@
 // probabilities there; elsewhere they are held to the plain backward by
 // tolerance.
 //
+// The bf16 pair also takes a Peel (slab_attention_common.cuh) for the
+// roofline study of tools/roofline_attn.py (S5), whose backward peels
+// (bwd_body :106-147, pallas_call :154) it replaces: tic_attention_bwd_peel
+// runs both passes cut to dma or matmul; the model's launches take kFull.
+//
 // f32: the SIMT route (tensor cores take f32 only as TF32, too coarse for the
 // f32 bound). Each warp takes one row at a time: pass 1 one query row (q_i,
 // then g_i, in registers; lanes over keys for S_i, its max and sum, dP_i,
@@ -69,10 +74,14 @@
 //
 // What bounds it on this card. At ViT-L train shapes (N 197, D 64) the bound
 // is device-memory bytes (q, k, v, g read and three gradients written once:
-// 0.054 ms at batch 64 bf16). The bf16 kernel's pace is set by the softmax
-// and dS arithmetic between its products (two exp2 per score in pass 1, one in
-// pass 2), the staging before the first product and the recomputed S and dP;
-// the f32 kernel is bound by SIMT FMAs fed from shared memory.
+// 0.054 ms at batch 64 bf16). The roofline peels (tic_attention_bwd_peel,
+// tools/roofline_attn.py) attribute the bf16 pair's 0.26 ms of device time at
+// batch 64 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the staging and stores of
+// the two passes 51% (each pass's row blocks re-stage two whole head
+// operands), the nine products with their fragment loads 40%, the softmax
+// and dS arithmetic between them (two exp2 a score in pass 1, one in pass 2)
+// 9%, nearly all of it in pass 1. The f32 kernel is bound by SIMT FMAs fed
+// from shared memory.
 #include "slab_attention_common.cuh"
 
 namespace {
@@ -341,8 +350,12 @@ size_t mma_smem_dkv(int n) {
 
 // Pass 1: dQ for a 16-row query strip a warp, and the rows' m (log2 domain),
 // 1 / l and D_i. With kProbe, also every P_ij it forms, as f32, to
-// probe[((b H + h) N + i) N + j].
-template <int D, bool kProbe>
+// probe[((b H + h) N + i) N + j]. kPeel (Peel, slab_attention_common.cuh;
+// tic_attention_bwd_peel): kDma writes dQ = Q and zero statistics after the
+// staging and the strip loads, kMatmul makes all five products with dS = dP / N
+// (no statistics: zeros are written), kFull is the pass. A peel stores its
+// folded values to probe when probe is not null; its entry point passes null.
+template <int D, bool kProbe, Peel kPeel = Peel::kFull>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_mma_kernel(Operands<bf16> op, const bf16* __restrict__ g,
                                 float* __restrict__ stats, int n, int num_heads,
@@ -383,40 +396,53 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float edp[2] = {0.f, 0.f};
+  unsigned fold = 0;  // the peels' values that no output reads
   if (active) {
+    if constexpr (kPeel == Peel::kDma) fold = fold_strip<D>(ga);
     for (int kc = 0; kc < chunks; ++kc) {
-      float s[2][4], dp[2][4];
-      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
-      strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
-      scale_and_mask(s, scale_log2, kRows * kc, n, lane);
+      if constexpr (kPeel == Peel::kMatmul) {
+        float s[2][4], dp[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
+        fold ^= fold_tile(s) ^ fold_tile(dp);
+      } else if constexpr (kPeel == Peel::kFull) {
+        float s[2][4], dp[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
+        scale_and_mask(s, scale_log2, kRows * kc, n, lane);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                           fmaxf(s[1][2 * r], s[1][2 * r + 1])));
-        const float alpha = exp_below<true>(m[r], mn);
-        float sum_e = 0.f, sum_edp = 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                             fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+          const float alpha = exp_below<true>(m[r], mn);
+          float sum_e = 0.f, sum_edp = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const float e = exp_below<true>(s[j][2 * r + x], mn);
-            sum_e += e;
-            sum_edp += __fmul_rn(e, dp[j][2 * r + x]);
-          }
-        l[r] = l[r] * alpha + sum_e;
-        edp[r] = edp[r] * alpha + sum_edp;
-        m[r] = mn;
+            for (int x = 0; x < 2; ++x) {
+              const float e = exp_below<true>(s[j][2 * r + x], mn);
+              sum_e += e;
+              sum_edp += __fmul_rn(e, dp[j][2 * r + x]);
+            }
+          l[r] = l[r] * alpha + sum_e;
+          edp[r] = edp[r] * alpha + sum_edp;
+          m[r] = mn;
+        }
       }
     }
   }
   float inv_l[2], di[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float row_max = quad_max(m[r]);
-    const float alpha = exp_below<true>(m[r], row_max);
-    inv_l[r] = 1.f / quad_sum(l[r] * alpha);
-    di[r] = quad_sum(edp[r] * alpha) * inv_l[r];
-    m[r] = row_max;
+    if constexpr (kPeel == Peel::kFull) {
+      const float row_max = quad_max(m[r]);
+      const float alpha = exp_below<true>(m[r], row_max);
+      inv_l[r] = 1.f / quad_sum(l[r] * alpha);
+      di[r] = quad_sum(edp[r] * alpha) * inv_l[r];
+      m[r] = row_max;
+    } else {
+      m[r] = inv_l[r] = di[r] = 0.f;
+    }
   }
 
   // Sweep 2: P = exp2(S - m) / l and dS = P (dP - D_i) in f32, dS rounded to
@@ -429,34 +455,47 @@ __global__ void __launch_bounds__(kThreads)
   if (active) {
     const int gq = lane / 4, t = lane % 4;
     for (int kc = 0; kc < chunks; ++kc) {
-      float s[2][4], dp[2][4];
-      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
-      strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
-      scale_and_mask(s, scale_log2, kRows * kc, n, lane);
-      unsigned da[4];
+      if constexpr (kPeel == Peel::kMatmul) {
+        float s[2][4], dp[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
+        fold ^= fold_tile(s);  // dS = dP / N needs no P
+        unsigned da[4];
+        scaled_fragment(da, dp, 1.f, 1.f / n);
+        accumulate_rows<D>(dq, da, ks, kRows * kc, lane);
+      } else if constexpr (kPeel == Peel::kFull) {
+        float s[2][4], dp[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        strip_times_rows_t<D>(dp, ga, vs, kRows * kc, lane);
+        scale_and_mask(s, scale_log2, kRows * kc, n, lane);
+        unsigned da[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float p0 = __fmul_rn(exp2f(s[j][2 * r] - m[r]), inv_l[r]);
-          const float p1 = __fmul_rn(exp2f(s[j][2 * r + 1] - m[r]), inv_l[r]);
-          da[2 * j + r] = pack_bf16(__fmul_rn(p0, dp[j][2 * r] - di[r]),
-                                    __fmul_rn(p1, dp[j][2 * r + 1] - di[r]));
-          if (kProbe) {
-            const int row = row0 + gq + 8 * r;
-            const int col = kRows * kc + 8 * j + 2 * t;
-            float* dst = probe + ((static_cast<size_t>(b) * num_heads + h) * n + row) * n;
-            if (row < n && col < n) dst[col] = p0;
-            if (row < n && col + 1 < n) dst[col + 1] = p1;
+          for (int r = 0; r < 2; ++r) {
+            const float p0 = __fmul_rn(exp2f(s[j][2 * r] - m[r]), inv_l[r]);
+            const float p1 = __fmul_rn(exp2f(s[j][2 * r + 1] - m[r]), inv_l[r]);
+            da[2 * j + r] = pack_bf16(__fmul_rn(p0, dp[j][2 * r] - di[r]),
+                                      __fmul_rn(p1, dp[j][2 * r + 1] - di[r]));
+            if (kProbe) {
+              const int row = row0 + gq + 8 * r;
+              const int col = kRows * kc + 8 * j + 2 * t;
+              float* dst = probe + ((static_cast<size_t>(b) * num_heads + h) * n + row) * n;
+              if (row < n && col < n) dst[col] = p0;
+              if (row < n && col + 1 < n) dst[col + 1] = p1;
+            }
           }
-        }
-      accumulate_rows<D>(dq, da, ks, kRows * kc, lane);
+        accumulate_rows<D>(dq, da, ks, kRows * kc, lane);
+      }
     }
+  }
+  if constexpr (kPeel == Peel::kDma) {
+    if (active) strip_as_tiles<D>(dq, qa);
   }
   __syncthreads();  // every warp is done with K and V: stage dQ over them
   if (active) {
-    store_strip<D>(op.dq + out_head, op.out_row, row0, n, dq, scale,
-                   ks + warp * kRows * P, lane);
+    store_strip<D>(op.dq + out_head, op.out_row, row0, n, dq,
+                   kPeel == Peel::kDma ? 1.f : scale, ks + warp * kRows * P, lane);
     if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -469,11 +508,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if constexpr (kPeel != Peel::kFull) {
+    if (probe != nullptr) reinterpret_cast<unsigned*>(probe)[threadIdx.x] = fold;
+  }
 }
 
 // Pass 2: dK and dV for a 16-row key strip a warp, from pass 1's statistics.
-// With kProbe, also every P_ij it forms to probe (pass 1's indexing).
-template <int D, bool kProbe>
+// With kProbe, also every P_ij it forms to probe (pass 1's indexing). kPeel:
+// kDma writes dK = K and dV = V after the staging (statistics included) and
+// the strip loads, kMatmul makes all four products with P = S D^-1/2 / N and
+// dS = dP / N (the staged statistics unread), kFull is the pass. Every value
+// a peel of this pass makes reaches an output, so it folds nothing.
+template <int D, bool kProbe, Peel kPeel = Peel::kFull>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkv_mma_kernel(Operands<bf16> op, const bf16* __restrict__ g,
                                  const float* __restrict__ stats, int n, int num_heads,
@@ -526,54 +572,71 @@ __global__ void __launch_bounds__(kThreads)
     const int chunks = (n + kRows - 1) / kRows;
     for (int qc = 0; qc < chunks; ++qc) {
       // rows: keys (g, g + 8 of the strip); columns: queries
-      float st[2][4], dpt[2][4];
-      strip_times_rows_t<D>(st, ka, qs, kRows * qc, lane);
-      strip_times_rows_t<D>(dpt, va, gs, kRows * qc, lane);
-      scale_and_mask(st, scale_log2, kRows * qc, n, lane);
-      unsigned pa[4], da[4];
+      if constexpr (kPeel == Peel::kMatmul) {
+        float st[2][4], dpt[2][4];
+        strip_times_rows_t<D>(st, ka, qs, kRows * qc, lane);
+        strip_times_rows_t<D>(dpt, va, gs, kRows * qc, lane);
+        unsigned pa[4], da[4];
+        scaled_fragment(pa, st, scale, 1.f / n);
+        scaled_fragment(da, dpt, 1.f, 1.f / n);
+        accumulate_rows<D>(dv, pa, gs, kRows * qc, lane);
+        accumulate_rows<D>(dk, da, qs, kRows * qc, lane);
+      } else if constexpr (kPeel == Peel::kFull) {
+        float st[2][4], dpt[2][4];
+        strip_times_rows_t<D>(st, ka, qs, kRows * qc, lane);
+        strip_times_rows_t<D>(dpt, va, gs, kRows * qc, lane);
+        scale_and_mask(st, scale_log2, kRows * qc, n, lane);
+        unsigned pa[4], da[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = kRows * qc + 8 * j + 2 * t;  // even: float2 reads
-        const float2 mm = *reinterpret_cast<const float2*>(sm + col);
-        const float2 il = *reinterpret_cast<const float2*>(sl + col);
-        const float2 dd = *reinterpret_cast<const float2*>(sd + col);
+        for (int j = 0; j < 2; ++j) {
+          const int col = kRows * qc + 8 * j + 2 * t;  // even: float2 reads
+          const float2 mm = *reinterpret_cast<const float2*>(sm + col);
+          const float2 il = *reinterpret_cast<const float2*>(sl + col);
+          const float2 dd = *reinterpret_cast<const float2*>(sd + col);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          // exp2(-inf - m) = 0 past N (m there is 0)
-          const float p0 = __fmul_rn(exp2f(st[j][2 * r] - mm.x), il.x);
-          const float p1 = __fmul_rn(exp2f(st[j][2 * r + 1] - mm.y), il.y);
-          pa[2 * j + r] = pack_bf16(p0, p1);
-          da[2 * j + r] = pack_bf16(__fmul_rn(p0, dpt[j][2 * r] - dd.x),
-                                    __fmul_rn(p1, dpt[j][2 * r + 1] - dd.y));
-          if (kProbe) {
-            const int key = row0 + gk + 8 * r;
-            float* dst = probe + (static_cast<size_t>(b) * num_heads + h) * n * n + key;
-            if (key < n && col < n) dst[static_cast<size_t>(col) * n] = p0;
-            if (key < n && col + 1 < n) dst[static_cast<size_t>(col + 1) * n] = p1;
+          for (int r = 0; r < 2; ++r) {
+            // exp2(-inf - m) = 0 past N (m there is 0)
+            const float p0 = __fmul_rn(exp2f(st[j][2 * r] - mm.x), il.x);
+            const float p1 = __fmul_rn(exp2f(st[j][2 * r + 1] - mm.y), il.y);
+            pa[2 * j + r] = pack_bf16(p0, p1);
+            da[2 * j + r] = pack_bf16(__fmul_rn(p0, dpt[j][2 * r] - dd.x),
+                                      __fmul_rn(p1, dpt[j][2 * r + 1] - dd.y));
+            if (kProbe) {
+              const int key = row0 + gk + 8 * r;
+              float* dst = probe + (static_cast<size_t>(b) * num_heads + h) * n * n + key;
+              if (key < n && col < n) dst[static_cast<size_t>(col) * n] = p0;
+              if (key < n && col + 1 < n) dst[static_cast<size_t>(col + 1) * n] = p1;
+            }
           }
         }
+        accumulate_rows<D>(dv, pa, gs, kRows * qc, lane);
+        accumulate_rows<D>(dk, da, qs, kRows * qc, lane);
       }
-      accumulate_rows<D>(dv, pa, gs, kRows * qc, lane);
-      accumulate_rows<D>(dk, da, qs, kRows * qc, lane);
+    }
+  }
+  if constexpr (kPeel == Peel::kDma) {
+    if (active) {
+      strip_as_tiles<D>(dk, ka);
+      strip_as_tiles<D>(dv, va);
     }
   }
   __syncthreads();  // every warp is done with Q and g: stage dK and dV over them
   if (active) {
-    store_strip<D>(op.dk + out_head, op.out_row, row0, n, dk, scale,
-                   qs + warp * kRows * P, lane);
+    store_strip<D>(op.dk + out_head, op.out_row, row0, n, dk,
+                   kPeel == Peel::kDma ? 1.f : scale, qs + warp * kRows * P, lane);
     store_strip<D>(op.dv + out_head, op.out_row, row0, n, dv, 1.f,
                    gs + warp * kRows * P, lane);
   }
 }
 
-template <int D, bool kProbe>
+template <int D, bool kProbe, Peel kPeel = Peel::kFull>
 int launch_mma(const Operands<bf16>& op, const void* g, void* stats, int b, int n,
                int num_heads, float scale, float* probe1, float* probe2,
                cudaStream_t stream) {
   const size_t smem1 = mma_smem_dq<D>(n);
   const size_t smem2 = mma_smem_dkv<D>(n);
-  auto dq = attention_bwd_dq_mma_kernel<D, kProbe>;
-  auto dkv = attention_bwd_dkv_mma_kernel<D, kProbe>;
+  auto dq = attention_bwd_dq_mma_kernel<D, kProbe, kPeel>;
+  auto dkv = attention_bwd_dkv_mma_kernel<D, kProbe, kPeel>;
   cudaError_t err = cudaFuncSetAttribute(
       dq, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -724,6 +787,28 @@ extern "C" int tic_attention_bwd_probes(const void* q, const void* k, const void
     case 32: return launch_mma<32, true>(op, g, stats, b, n, num_heads, scale, p1, p2, s);
     case 64: return launch_mma<64, true>(op, g, stats, b, n, num_heads, scale, p1, p2, s);
     case 128: return launch_mma<128, true>(op, g, stats, b, n, num_heads, scale, p1, p2, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A measurement entry point, on no path of the model: the bf16 backward of
+// the slab form (K2, both passes) at D 64 cut to the roofline study's `level`
+// (Peel: 0 dma, 2 matmul, 3 full = K2 itself; the backward has no layout
+// level). Arguments as tic_slab_attention_bwd without the dtype.
+extern "C" int tic_attention_bwd_peel(const void* qkv, const void* g, void* dqkv,
+                                      void* stats, int b, int n, int num_heads, int d,
+                                      float scale, int level, void* stream) {
+  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* out = static_cast<bf16*>(dqkv);
+  const int c = num_heads * d;
+  const Operands<bf16> op{in, in + c, in + 2 * c, 3LL * n * c, 3 * c,
+                          out, out + c, out + 2 * c, 3LL * n * c, 3 * c};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (level) {
+    case 0: return launch_mma<64, false, Peel::kDma>(op, g, stats, b, n, num_heads, scale, nullptr, nullptr, s);
+    case 2: return launch_mma<64, false, Peel::kMatmul>(op, g, stats, b, n, num_heads, scale, nullptr, nullptr, s);
+    case 3: return launch_mma<64, false, Peel::kFull>(op, g, stats, b, n, num_heads, scale, nullptr, nullptr, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,7 +4,10 @@
 // route (its kernels are templates on the element type, instantiated for
 // float only); cp.async staging, ldmatrix, mma.sync and the fragment layouts
 // of the bf16 tensor-core route (namespace tic::mma). The patch embedding
-// (patch_embed.cu, K5) gathers its image tiles with the cp.async helpers.
+// (patch_embed.cu, K5) gathers its image tiles with the cp.async helpers, the
+// slab null copy (slab_null_copy.cu, S6) its row tiles. Peel names the
+// cumulative peels of the bf16 attention kernels that the roofline study
+// (S5) times.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +20,23 @@ namespace tic {
 constexpr int kBlockRows = 64;  // rows of N one block takes
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+
+// How much of a bf16 attention kernel runs (a template argument of the
+// tensor-core kernels; kFull, the shipped kernel, is the default). Each level
+// keeps the grid, the staging and the stores of the one above and drops one
+// part of the work:
+// - kDma: the staging (cp.async) and the strip loads into A fragments, then
+//   the stores; every output is one of the inputs, as it came;
+// - kLayout: kDma plus every ldmatrix / ldmatrix.trans fragment load of the
+//   staged operands that the sweeps make (the forward only);
+// - kMatmul: kLayout plus every product; the softmax gives way to
+//   P = S * scale / N (and dS = dP / N): no max, exp2, sum or rescale;
+// - kFull: the kernel as the model runs it.
+// Values no output reads (the fragments of kLayout, the products of a sweep
+// that only fed the softmax) are folded into one word that the kernel stores
+// under a runtime flag its entry point leaves off, so none of the work is dead
+// code.
+enum class Peel : int { kDma = 0, kLayout = 1, kMatmul = 2, kFull = 3 };
 
 template <typename T>
 struct Pair;
@@ -326,6 +346,95 @@ __device__ __forceinline__ float exp_base(float x) {
 template <bool kExp2>
 __device__ __forceinline__ float exp_below(float x, float m) {
   return exp_base<kExp2>(x - (m == -INFINITY ? 0.f : m));
+}
+
+// --- the peels (Peel) --------------------------------------------------------
+
+// The ldmatrix loads of strip_times_rows_t<D>(.., rows, j0, ..) without the
+// products, folded into one word. The address is a copy of that function's:
+// taking both from one helper changed ptxas's register allocation of the
+// backward kernels (K2's passes 118 -> 120 and 164 -> 165 registers).
+template <int D>
+__device__ __forceinline__ unsigned rows_t_fragments(const __nv_bfloat16* rows, int j0,
+                                                     int lane) {
+  const __nv_bfloat16* base =
+      rows + (j0 + (lane & 7) + ((lane >> 4) << 3)) * kPitch<D> + ((lane >> 3) & 1) * 8;
+  unsigned fold = 0;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    unsigned b[4];
+    ldmatrix_x4(b, base + 16 * ks);
+    fold ^= b[0] ^ b[1] ^ b[2] ^ b[3];
+  }
+  return fold;
+}
+
+// The ldmatrix.trans loads of accumulate_rows<D>(.., rows, j0, ..) without the
+// products, folded into one word (the address copied likewise).
+template <int D>
+__device__ __forceinline__ unsigned rows_fragments(const __nv_bfloat16* rows, int j0,
+                                                   int lane) {
+  const __nv_bfloat16* base =
+      rows + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch<D> + (lane >> 4) * 8;
+  unsigned fold = 0;
+#pragma unroll
+  for (int cs = 0; cs < D / 16; ++cs) {
+    unsigned b[4];
+    ldmatrix_x4_trans(b, base + 16 * cs);
+    fold ^= b[0] ^ b[1] ^ b[2] ^ b[3];
+  }
+  return fold;
+}
+
+// A 16 x 16 tile (two C tiles) folded into one word.
+__device__ __forceinline__ unsigned fold_tile(const float (&s)[2][4]) {
+  unsigned fold = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fold ^= __float_as_uint(s[j][e]);
+  return fold;
+}
+
+// A warp's 16 x D strip of A fragments (as load_a_strip leaves it) folded into
+// one word.
+template <int D>
+__device__ __forceinline__ unsigned fold_strip(const unsigned (&a)[D / 16][4]) {
+  unsigned fold = 0;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) fold ^= a[ks][0] ^ a[ks][1] ^ a[ks][2] ^ a[ks][3];
+  return fold;
+}
+
+// The A fragments of a 16 x D strip as f32 C tiles (D / 8 of them), each value
+// exactly the bf16 it was: store_strip with scale 1 then writes the strip back
+// bit for bit.
+template <int D>
+__device__ __forceinline__ void strip_as_tiles(float (&out)[D / 8][4],
+                                               const unsigned (&a)[D / 16][4]) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns 16ks + 2t (a0, a1), + 8 (a2, a3)
+      const unsigned top = a[ks][2 * h], bottom = a[ks][2 * h + 1];
+      out[2 * ks + h][0] = __uint_as_float(top << 16);
+      out[2 * ks + h][1] = __uint_as_float(top & 0xffff0000u);
+      out[2 * ks + h][2] = __uint_as_float(bottom << 16);
+      out[2 * ks + h][3] = __uint_as_float(bottom & 0xffff0000u);
+    }
+}
+
+// A 16 x 16 tile of f32 values times `scale`, then times `inv_n`, rounded to
+// bf16 pairs as an A fragment (the peels' stand-in for the softmax: P = S *
+// scale / N, dS = dP / N with scale 1).
+__device__ __forceinline__ void scaled_fragment(unsigned (&a)[4], const float (&s)[2][4],
+                                                float scale, float inv_n) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      a[2 * j + r] = pack_bf16(__fmul_rn(__fmul_rn(s[j][2 * r], scale), inv_n),
+                               __fmul_rn(__fmul_rn(s[j][2 * r + 1], scale), inv_n));
 }
 
 }  // namespace mma

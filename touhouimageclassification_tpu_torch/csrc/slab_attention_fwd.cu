@@ -44,6 +44,12 @@
 // two (S is recomputed rather than held: 16 x N f32 a warp would not fit in
 // registers at D 128).
 //
+// The bf16 kernel also takes a Peel (slab_attention_common.cuh) for the
+// roofline study of tools/roofline_attn.py (S5), whose forward peels
+// (fwd_body :64-88, pallas_call :95) it replaces: tic_attention_fwd_peel runs
+// the same grid and staging cut to dma, layout or matmul; the model's
+// launches take kFull, the kernel as described above.
+//
 // f32: attention_fwd_kernel, SIMT (tensor cores take f32 only as TF32, about
 // three decimal digits, too coarse for the f32 bound). Each warp takes one
 // query row at a time: q in registers, lanes over keys for the scores, warp
@@ -51,11 +57,16 @@
 // D + 2 pitch and read in float2 pairs, free of bank conflicts.
 //
 // What bounds it on this card. At ViT-L shapes (N 197, D 64) the bound is
-// device-memory bytes (each q, k, v, o row once: 0.031 ms at batch 64 bf16);
-// the bf16 kernel's own pace is set by the softmax between the products (an
-// exp2 per score, twice), the staging latency before the first product and
-// the recomputed S, not by the MMA issue rate. The f32 kernel is bound by
-// SIMT FMAs and the shared-memory loads that feed them.
+// device-memory bytes (each q, k, v, o row once: 0.031 ms at batch 64 bf16).
+// The roofline peels (tic_attention_fwd_peel, tools/roofline_attn.py)
+// attribute the bf16 kernel's 0.12 ms of device time at batch 64 (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md): the staging 44% (each of a head's
+// ceil(N / 64) row blocks stages all of K_h and V_h, 2.5x the unique bytes,
+// and waits for K before its first product); the softmax between the
+// products (an exp2 per score, twice) 31%; the ldmatrix fragment loads 9%;
+// the three products 16%, of which the recomputed S is a third. Not the MMA
+// issue rate. The f32 kernel is bound by SIMT FMAs and the shared-memory
+// loads that feed them.
 #include "slab_attention_common.cuh"
 
 namespace {
@@ -201,12 +212,18 @@ size_t mma_smem_bytes(int n) {
 
 // kExp2: exp2 of scores scaled by D^-1/2 log2(e) (the model's route), or exp
 // of scores scaled by D^-1/2 (a measurement variant, tic_attention_fwd_variant).
-template <int D, int kBlockWarps, bool kExp2>
+// kPeel: how much of the kernel runs (Peel, slab_attention_common.cuh; the
+// roofline study's levels, tic_attention_fwd_peel): kDma writes the Q strip
+// back as it came, kLayout too after every fragment load of K and V of both
+// sweeps, kMatmul writes P V with P = S D^-1/2 / N (score_scale then D^-1/2),
+// kFull is the kernel. keep_folds stores the peels' folded fragments and
+// products over the output; every launch passes 0.
+template <int D, int kBlockWarps, bool kExp2, Peel kPeel = Peel::kFull>
 __global__ void __launch_bounds__(kBlockWarps * 32)
     attention_fwd_mma_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
                              const bf16* __restrict__ v_in, long long batch_stride,
                              int row_stride, bf16* __restrict__ out, int n, int num_heads,
-                             float score_scale) {
+                             float score_scale, int keep_folds) {
   using namespace mma;
   constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -236,28 +253,39 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
   const int chunks = (n + kRows - 1) / kRows;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
+  unsigned fold = 0;  // the peels' values that no output reads
   if (active) {
     for (int kc = 0; kc < chunks; ++kc) {
-      float s[2][4];
-      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
-      scale_and_mask(s, score_scale, kRows * kc, n, lane);
+      if constexpr (kPeel == Peel::kLayout) {
+        fold ^= rows_t_fragments<D>(ks, kRows * kc, lane);
+      } else if constexpr (kPeel == Peel::kMatmul) {
+        float s[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        fold ^= fold_tile(s);
+      } else if constexpr (kPeel == Peel::kFull) {
+        float s[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        scale_and_mask(s, score_scale, kRows * kc, n, lane);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                           fmaxf(s[1][2 * r], s[1][2 * r + 1])));
-        l[r] = l[r] * exp_below<kExp2>(m[r], mn) + exp_below<kExp2>(s[0][2 * r], mn) +
-               exp_below<kExp2>(s[0][2 * r + 1], mn) + exp_below<kExp2>(s[1][2 * r], mn) +
-               exp_below<kExp2>(s[1][2 * r + 1], mn);
-        m[r] = mn;
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                             fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+          l[r] = l[r] * exp_below<kExp2>(m[r], mn) + exp_below<kExp2>(s[0][2 * r], mn) +
+                 exp_below<kExp2>(s[0][2 * r + 1], mn) + exp_below<kExp2>(s[1][2 * r], mn) +
+                 exp_below<kExp2>(s[1][2 * r + 1], mn);
+          m[r] = mn;
+        }
       }
     }
   }
   float inv_l[2];
+  if constexpr (kPeel == Peel::kFull) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float row_max = quad_max(m[r]);
-    inv_l[r] = 1.f / quad_sum(l[r] * exp_below<kExp2>(m[r], row_max));
-    m[r] = row_max;
+    for (int r = 0; r < 2; ++r) {
+      const float row_max = quad_max(m[r]);
+      inv_l[r] = 1.f / quad_sum(l[r] * exp_below<kExp2>(m[r], row_max));
+      m[r] = row_max;
+    }
   }
 
   // Sweep 2: P = exp2(S - m) / l in f32, rounded to bf16 as an A fragment,
@@ -271,40 +299,59 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   if (active) {
     for (int kc = 0; kc < chunks; ++kc) {
-      float s[2][4];
-      strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
-      scale_and_mask(s, score_scale, kRows * kc, n, lane);
-      unsigned pa[4];
+      if constexpr (kPeel == Peel::kLayout) {
+        fold ^= rows_t_fragments<D>(ks, kRows * kc, lane);
+        fold ^= rows_fragments<D>(vs, kRows * kc, lane);
+      } else if constexpr (kPeel == Peel::kMatmul) {
+        float s[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        unsigned pa[4];
+        scaled_fragment(pa, s, score_scale, 1.f / n);
+        accumulate_rows<D>(o, pa, vs, kRows * kc, lane);
+      } else if constexpr (kPeel == Peel::kFull) {
+        float s[2][4];
+        strip_times_rows_t<D>(s, qa, ks, kRows * kc, lane);
+        scale_and_mask(s, score_scale, kRows * kc, n, lane);
+        unsigned pa[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]) * inv_l[r],
-                                    exp_base<kExp2>(s[j][2 * r + 1] - m[r]) * inv_l[r]);
-      accumulate_rows<D>(o, pa, vs, kRows * kc, lane);
+          for (int r = 0; r < 2; ++r)
+            pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]) * inv_l[r],
+                                      exp_base<kExp2>(s[j][2 * r + 1] - m[r]) * inv_l[r]);
+        accumulate_rows<D>(o, pa, vs, kRows * kc, lane);
+      }
     }
+  }
+  if constexpr (kPeel == Peel::kDma || kPeel == Peel::kLayout) {
+    if (active) strip_as_tiles<D>(o, qa);
   }
   __syncthreads();  // every warp is done with K and V: stage O over them
   if (active)
     store_strip<D>(out + (static_cast<size_t>(b) * n) * num_heads * D + h * D,
                    static_cast<size_t>(num_heads) * D, row0, n, o, 1.f,
                    ks + warp * kRows * P, lane);
+  if constexpr (kPeel != Peel::kFull) {
+    if (keep_folds) reinterpret_cast<unsigned*>(out)[threadIdx.x] = fold;
+  }
 }
 
-template <int D, int kBlockWarps, bool kExp2 = true>
+template <int D, int kBlockWarps, bool kExp2 = true, Peel kPeel = Peel::kFull>
 int launch_mma(const bf16* q, const bf16* k, const bf16* v, long long batch_stride,
                int row_stride, void* out, int b, int n, int num_heads, float scale,
                cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>(n);
-  auto kernel = attention_fwd_mma_kernel<D, kBlockWarps, kExp2>;
+  auto kernel = attention_fwd_mma_kernel<D, kBlockWarps, kExp2, kPeel>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kRowsPerBlock = kBlockWarps * mma::kRows;
   const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, b);
+  constexpr bool kLog2 = kExp2 && kPeel == Peel::kFull;  // the peels take D^-1/2
   kernel<<<grid, kBlockWarps * 32, smem, stream>>>(q, k, v, batch_stride, row_stride,
                                                    static_cast<bf16*>(out), n, num_heads,
-                                                   kExp2 ? scale * 1.4426950408889634f : scale);
+                                                   kLog2 ? scale * 1.4426950408889634f : scale,
+                                                   0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,6 +465,29 @@ extern "C" int tic_attention_fwd_variant(const void* q, const void* k, const voi
     case 4: return launch_mma<64, 2, false>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
     case 3: return launch_mma<64, 1, true>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
     case 2: return launch_mma<64, 1, false>(qt, kt, vt, batch_stride, row_stride, out, b, n, num_heads, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A measurement entry point, on no path of the model: the bf16 forward of the
+// slab form (K1) at D 64 cut to the roofline study's `level` (Peel: 0 dma, 1
+// layout, 2 matmul, 3 full = K1 itself). Arguments as tic_slab_attention_fwd
+// without the dtype.
+extern "C" int tic_attention_fwd_peel(const void* qkv, void* out, int b, int n,
+                                      int num_heads, int d, float scale, int level,
+                                      void* stream) {
+  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int c = num_heads * d;
+  const bf16* k = q + c;
+  const bf16* v = q + 2 * c;
+  const long long batch = 3LL * n * c;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (level) {
+    case 0: return launch_mma<64, 4, true, Peel::kDma>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    case 1: return launch_mma<64, 4, true, Peel::kLayout>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    case 2: return launch_mma<64, 4, true, Peel::kMatmul>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    case 3: return launch_mma<64, 4, true, Peel::kFull>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,14 +17,17 @@ tensor-core redesign: ``mma`` and ``simt``), and of K5 at ViT-L batch 64
 (``k5_ms``, as K1 and K2) and on the device alone (``k5_device_ms``: 20
 back-to-back calls behind a spin kernel, median of 10; the bf16 kernel
 takes less time on the device than its launch on the host). The script
-prints one JSON line per process and, last, the card and the medians of
-each side.
+prints one JSON line per process, the card and the medians of each side,
+and last whether the two builds compile each kernel to the same code: the
+names of the other checkout's kernels whose SASS (``cuobjdump -sass``,
+instructions only) no kernel of this checkout's library repeats exactly.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -36,7 +39,7 @@ _CHILD = r"""
 import json, statistics, torch
 from touhouimageclassification_tpu_torch.ops import attention as attn
 from touhouimageclassification_tpu_torch.ops._build import build_library
-build_library()
+lib = str(build_library())
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
 qkv32 = torch.randn(64, 197, 3 * 1024, generator=gen, device=dev)
@@ -73,7 +76,8 @@ print(json.dumps({
     "k1_f32_ms": ms(lambda: attn.slab_attention_forward(qkv32, 16)),
     "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16)),
     "k5_ms": ms(k5), "k5_device_ms": ms(k5, reps=10, calls=20),
-    "k5_f32_ms": ms(k5_32), "k5_f32_device_ms": ms(k5_32, reps=10, calls=20)}))
+    "k5_f32_ms": ms(k5_32), "k5_f32_device_ms": ms(k5_32, reps=10, calls=20),
+    "lib": lib}))
 """
 
 
@@ -82,6 +86,28 @@ def measure(root: str) -> dict:
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root, env=env,
                          capture_output=True, text=True, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def sass(lib: str) -> dict:
+    """Each kernel of the library ``lib`` by mangled name: its SASS
+    instructions (the lines that end in ``;``, without addresses and
+    encodings), less the NOPs that pad its end (their number follows the
+    kernel's place in the library, not its code)."""
+    from ..ops._build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    kernels = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        lines = (re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                        line).strip() for line in body.splitlines())
+        code = [x for x in lines if x.endswith(";")]
+        while code and code[-1].startswith("NOP"):
+            code.pop()
+        kernels[name] = tuple(code)
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -103,8 +129,12 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     print(json.dumps({side: {k: statistics.median(r[k] for r in rs)
-                             for k in rs[0]}
+                             for k in rs[0] if k != "lib"}
                       for side, rs in runs.items()}))
+    here = set(sass(runs["this"][0]["lib"]).values())
+    other = sass(runs["other"][0]["lib"])
+    print(json.dumps({"other_kernels": len(other), "without_same_sass_here": [
+        name for name, body in other.items() if body not in here]}))
     return 0
 
 

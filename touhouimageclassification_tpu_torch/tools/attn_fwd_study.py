@@ -9,44 +9,27 @@ model) it times, on the (B, N, 3C) slab of ViT-L (N 197, C 1024, 16 heads of
 64) at batch 64 (the train step and the serve bucket 64) and batch 1 (serve
 bucket 1), each of
 
-- 64, 32 or 16 query rows a block (4, 2 or 1 warps): the rows-per-block
-  question of ``tools/bench_attn4.py``;
-- ``exp2`` of scores scaled by log2(e) against ``exp``: the question of
-  ``tools/bench_attn6.py``;
+- 64, 32 or 16 query rows a block (4, 2 or 1 warps): a question of this
+  port's own grid (``tools/bench_attn4.py`` asks another: how many whole
+  images one grid step takes, its ``block_b``);
+- ``exp2`` of scores scaled by log2(e) against ``exp``: one of the
+  questions of ``tools/bench_attn6.py``;
 
 and holds each against the plain version (max |diff| and relative
 difference in norm). It also times the model's own launch
 (``slab_attention_forward``, which picks the rows a block from the launch
-shape) and prints its achieved rates against the card's published peaks:
-what bounds it (``tools/roofline_attn.py``'s question). One JSON line per
-measurement; the card's name and power limit last. Medians of ``--reps``
+shape) and prints its achieved rates against the card's published peaks
+(``tools.roofline_attn`` attributes its time to its parts). One JSON line
+per measurement; the card's name and power limit last. Medians of ``--reps``
 CUDA-event timings after 5 warm-up launches.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 
-PEAK_BF16 = 989e12  # H100 SXM tensor cores, dense (NVIDIA's data sheet)
-PEAK_BYTES = 3.35e12
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+from .timing import PEAK_BF16, PEAK_BYTES, card_line, cuda_ms
 
 
 def main(argv=None) -> int:
@@ -107,9 +90,7 @@ def main(argv=None) -> int:
             "share_of_memory_rate": nbytes / ms / 1e-3 / PEAK_BYTES,
             "bound_ms": 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES)}),
             flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_line())
     return 0
 
 

@@ -25,34 +25,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 
-PEAK_BF16 = 989e12  # H100 SXM tensor cores, dense (NVIDIA's data sheet)
-PEAK_BYTES = 3.35e12
-SPIN_CYCLES = 10_000_000  # ~5 ms of an H100's clock: covers 20 host launches
-
-
-def cuda_ms(torch, fn, reps: int, calls: int = 1) -> float:
-    """Median milliseconds per ``fn()`` between two CUDA events around
-    ``calls`` calls; with ``calls`` > 1 the card is first held busy, so the
-    events time the device alone."""
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if calls > 1:
-            torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+from .timing import PEAK_BF16, PEAK_BYTES, card_line, cuda_ms
 
 
 def main(argv=None) -> int:
@@ -112,9 +87,7 @@ def main(argv=None) -> int:
             "gemm_only_ms": cuda_ms(torch, lambda: F.linear(
                 unfolded, weight, bias), args.reps, calls=20)}),
             flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_line())
     return 0
 
 
