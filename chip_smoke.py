@@ -83,7 +83,18 @@ fatal on failure:
     B 64 and 128, their launches counted; then every level and variant held
     to its plain version (``dma``, ``layout`` and the copies bit for bit,
     ``matmul`` and ``full`` within the bf16 bounds) and the ``full`` peels
-    to K1 and K2 bit for bit.
+    to K1 and K2 bit for bit;
+14. the kernel studies S1-S4, the study path: ``tools.bench_attn4`` (S1,
+    whole images a block), ``tools.bench_attn6`` (S2, exp / exp2 and the
+    divide of P / 1 / l after PV, on K1's kernel), ``tools.bench_attn7``
+    (S3, head batching, forward and backward) and ``tools.bench_attn8`` (S4,
+    H / S heads a block, forward and backward) at ViT-L's width and B 64 and
+    128, their launches counted by tile and variant; then every tile held
+    to its plain version within the bf16 bounds and to K1 (forward) and K2
+    (backward) bit for bit, at B 64 and 128 and on ragged shapes (B 1, 2, 3;
+    N 16, 67, 197, 257), the S2 variants to their plain versions (exp2
+    without post_mul to K1 bit for bit), a tile past shared memory (N 577)
+    raising, and ``tile_smem_bytes`` equal to the C sums.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -175,6 +186,11 @@ PE_ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
 # The kernel studies' batches (phase 13): the reference studies' B 128 and
 # the B 64 of the K1 / K2 rows; the kernels line reports B 64.
 STUDY_BATCHES = (64, 128)
+# The tile studies' edge shapes (phase 14): (B, N) with B ragged for 2 and 4
+# images a block and N from one 16-row chunk to ragged row blocks past 256.
+# At N 577 (D 64) two stages of K_h and V_h exceed a block's shared memory.
+TILE_EDGES = ((1, 67), (2, 16), (3, 197), (3, 257))
+TILE_TOO_LONG = 577
 # The model variants: the default configuration, the plain attention, and
 # the slice of the three-operand kernels ('flash' = K4, 'pallas' = K5).
 VARIANTS = {
@@ -1788,6 +1804,171 @@ def phase_studies(torch, attn, study):
     return entries
 
 
+def phase_tile_studies(torch, attn, study):
+    """Phase 14: the kernel studies S1-S4 (see the module docstring). Returns
+    their entries of the kernels line: one per study key and direction,
+    with its launches on the study path and its numbers at B 64."""
+    from touhouimageclassification_tpu_torch.tools import (
+        attn_tiles, bench_attn4, bench_attn6, bench_attn7, bench_attn8)
+
+    tools = {"S1": bench_attn4, "S2": bench_attn6, "S3": bench_attn7,
+             "S4": bench_attn8}
+    h, d = 16, 64
+    c = h * d
+    study.reset_launches()
+    records = {name: tool.measure(STUDY_BATCHES, reps=30)
+               for name, tool in tools.items()}
+    fwd, bwd = dict(study.tile_launches), dict(study.tile_bwd_launches)
+    soft = dict(study.softmax_launches)
+    for recs in records.values():
+        for rec in recs:
+            print(json.dumps(rec))
+    idle = ([f"fwd {t}" for t in study.FWD_TILES if not fwd[t]]
+            + [f"bwd {t}" for t in study.BWD_TILES if not bwd[t]]
+            + [f"softmax {k}" for k in study.SOFTMAX_VARIANTS if not soft[k]])
+    if idle:
+        raise AssertionError(f"study path launched no {idle}")
+    print(f"study path launches (tools.bench_attn4/6/7/8 at B "
+          f"{STUDY_BATCHES}): forward tiles {list(fwd.values())}, backward "
+          f"tiles {list(bwd.values())}, softmax variants {soft}")
+    for name, recs in records.items():
+        for rec in recs:
+            k1_twin = name != "S2" or (rec.get("exp2") and not rec["post_mul"])
+            if "baseline" not in rec and (
+                    (k1_twin and not rec["fwd_bit_equal_k1"])
+                    or rec.get("bwd_bit_equal_k2") is False):
+                raise AssertionError(f"{name} {rec}: not bit-equal to K1/K2")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    bf16 = torch.bfloat16
+    fwd_tiles = (*study.FWD_TILES, study.SHIPPED_TILE)
+    bwd_tiles = (*study.BWD_TILES, study.SHIPPED_TILE)
+    shapes = [(b, 197) for b in STUDY_BATCHES] + list(TILE_EDGES)
+    for b, n in shapes:
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(bf16)
+        g = torch.randn(b, n, c, generator=gen, device=dev).to(bf16)
+        k1 = attn.slab_attention_forward(qkv, h)
+        k2 = attn.slab_attention_backward(qkv, g, h)
+        plain_fwd = attn.slab_attention_reference(qkv, h)
+        plain_bwd = attn.slab_attention_backward_reference(qkv, g, h)
+        for tile in fwd_tiles:
+            out = study.slab_attention_tile_forward(qkv, h, tile)
+            torch.cuda.synchronize()
+            if not torch.equal(out, k1):
+                raise AssertionError(f"fwd {tile}, B {b} N {n}: differs from K1")
+            check_close(torch, f"fwd {tile}", out, plain_fwd, bf16,
+                        verbose=False)
+        for tile in bwd_tiles:
+            out = study.slab_attention_tile_backward(qkv, g, h, tile)
+            torch.cuda.synchronize()
+            if not torch.equal(out, k2):
+                raise AssertionError(f"bwd {tile}, B {b} N {n}: differs from K2")
+            check_close(torch, f"bwd {tile}", out, plain_bwd, bf16,
+                        verbose=False)
+        for key in study.SOFTMAX_VARIANTS:
+            out = study.softmax_variant_forward(qkv, h, *key)
+            torch.cuda.synchronize()
+            check_close(torch, f"softmax {key}", out,
+                        study.softmax_variant_reference(qkv, h, *key), bf16,
+                        verbose=False)
+            if key == (True, False) and not torch.equal(out, k1):
+                raise AssertionError(f"softmax {key}, B {b} N {n}: differs "
+                                     "from K1")
+    lib = attn.load_library()
+    for tile in (*fwd_tiles, *bwd_tiles):
+        for backward in (False, True):
+            if backward and tile.staged != 1:
+                continue
+            for n in (16, 67, 197, 257, TILE_TOO_LONG):
+                want = lib.tic_attention_tile_smem_bytes(
+                    n, d, tile.staged, tile.stages, int(backward))
+                if study.tile_smem_bytes(tile, n, d, backward) != want:
+                    raise AssertionError(f"{tile} N {n}: tile_smem_bytes "
+                                         f"differs from the C sum {want}")
+    too_long = torch.zeros(1, TILE_TOO_LONG, 3 * c, dtype=bf16, device=dev)
+    g_long = too_long[..., :c].contiguous()
+    runs = [lambda t=t: study.slab_attention_tile_forward(too_long, h, t)
+            for t in study.FWD_TILES]
+    runs += [lambda t=t: study.slab_attention_tile_backward(too_long, g_long,
+                                                           h, t)
+             for t in study.BWD_TILES]
+    for run in runs:
+        try:
+            run()
+        except ValueError as e:
+            if "shared memory" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"a tile at N {TILE_TOO_LONG} did not raise")
+    print(f"S1-S4 at (B, N) {shapes}: every tile bit-equal to K1 (forward) "
+          f"and K2 (backward) and within {TOL['bfloat16']} and "
+          f"{REL_TOL['bfloat16']} in norm of the plain versions; the S2 "
+          "variants within the same bounds of theirs, exp2 without post_mul "
+          f"bit-equal to K1; N {TILE_TOO_LONG} raises; tile_smem_bytes equals "
+          "the C sums")
+
+    replaces = {("S1", "fwd"): "tools/bench_attn4.py:50",
+                ("S2", "fwd"): "tools/bench_attn6.py:55",
+                ("S3", "fwd"): "tools/bench_attn7.py:118",
+                ("S3", "bwd"): "tools/bench_attn7.py:128",
+                ("S4", "fwd"): "tools/bench_attn8.py:45",
+                ("S4", "bwd"): "tools/bench_attn8.py:100"}
+    entries = []
+    qkv = torch.randn(64, 197, 3 * c, generator=gen, device=dev).to(bf16)
+    g = torch.randn(64, 197, c, generator=gen, device=dev).to(bf16)
+    leaf = qkv.detach().requires_grad_()
+    library = {"fwd": cuda_ms(lambda: sdpa(
+        torch, *qkv.view(64, 197, 3, h, d).unbind(2))),
+        "bwd": sdpa_backward_ms(torch, (leaf,), leaf.view(
+            64, 197, 3, h, d).unbind(2), g)}
+    for name, recs in records.items():
+        for rec in recs:
+            if "baseline" in rec or rec["batch"] != 64:
+                continue
+            if name == "S2":
+                label = f"exp2={rec['exp2']} post_mul={rec['post_mul']}"
+            else:
+                key_name = attn_tiles.KEY_NAMES[name]
+                label = f"{key_name} {rec[key_name]}"
+            tile = study.Tile(**rec["tile"])
+            for way in ("fwd", "bwd"):
+                if f"{way}_device_ms" not in rec:
+                    continue
+                if name == "S2":
+                    n_launch = soft[(rec["exp2"], rec["post_mul"])]
+                    kernel, source = ("softmax_variant_forward",
+                                      "slab_attention_fwd.cu")
+                else:
+                    n_launch = (fwd if way == "fwd" else bwd)[tile]
+                    kernel = ("slab_attention_tile_forward" if way == "fwd"
+                              else "slab_attention_tile_backward")
+                    source = "slab_attention_tile.cu"
+                products = 2 if way == "fwd" else 5
+                elems = (4 if way == "fwd" else 7) * 64 * 197 * c
+                bound_ms, bound_by = bound(
+                    products * 2 * 64 * h * 197 * 197 * d, 2 * elems, bf16)
+                device = rec[f"{way}_device_ms"]
+                entry = {
+                    "name": f"{kernel}[{name} {label}]", "route": "cuda",
+                    "source": "touhouimageclassification_tpu_torch/csrc/"
+                              + source,
+                    "device_routes": {"bfloat16": "mma"},
+                    "replaces": replaces[(name, way)], "launches": n_launch,
+                    "launches_by_path": {"study": n_launch},
+                    "max_abs_err": rec[f"{way}_max_abs_err"],
+                    "ms": rec[f"{way}_ms"], "device_ms": device,
+                    "plain_ms": rec[f"{way}_plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "share": bound_ms / device,
+                    "library_ms": library[way],
+                    "tile": rec["tile"], "blocks": rec["blocks"],
+                    "stages": rec["stages"]}
+                if "same_kernel_as" in rec:
+                    entry["same_kernel_as"] = rec["same_kernel_as"]
+                entries.append(entry)
+    return entries
+
+
 def profile(torch, fn, label: str):
     """Device time by kernel of one ``fn()`` (a train step or a serve
     forward), and the device's busy share of its wall time."""
@@ -1887,6 +2068,7 @@ def main() -> int:
             torch, attn, serve, create_model, Trainer, data, work, vit_export,
             mean_std["mean"], mean_std["std"], layers, dev)
     study_kernels = phase_studies(torch, attn, study)
+    tile_kernels = phase_tile_studies(torch, attn, study)
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -1928,7 +2110,7 @@ def main() -> int:
         "replaces": ref + replaces, "launches": by_path[main_path],
         "launches_by_path": by_path, **stats[key]}
         for key, name, source, replaces, by_path, main_path in kernels]
-        + study_kernels}))
+        + study_kernels + tile_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@
 // float only); cp.async staging, ldmatrix, mma.sync and the fragment layouts
 // of the bf16 tensor-core route (namespace tic::mma). The patch embedding
 // (patch_embed.cu, K5) gathers its image tiles with the cp.async helpers, the
-// slab null copy (slab_null_copy.cu, S6) its row tiles. Peel names the
+// slab null copy (slab_null_copy.cu, S6) its row tiles, the attention tiles
+// of the studies S1, S3 and S4 (slab_attention_tile.cu) their K_h and V_h
+// (stage_heads_async) and row statistics (cp_async4). Peel names the
 // cumulative peels of the bf16 attention kernels that the roofline study
 // (S5) times.
 #pragma once
@@ -172,6 +174,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4-byte asynchronous copy global -> shared (through L1); zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -192,6 +200,26 @@ __device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloa
     const int ch = i - r * kChunks;
     const bool valid = r < n;
     cp_async16(dst + r * kPitch<D> + 8 * ch, src + (valid ? r * ld + 8 * ch : 0), valid);
+  }
+}
+
+// stage_async for `heads` adjacent heads at once: one pass over the row
+// segment of heads * D elements (16-byte chunk c of a row to head c / (D / 8)),
+// head j to the `rows` rows at dst + j * rows * kPitch<D>. With heads 1 it
+// copies what stage_async copies, to the same places.
+template <int D>
+__device__ __forceinline__ void stage_heads_async(__nv_bfloat16* dst,
+                                                  const __nv_bfloat16* src, int n, int rows,
+                                                  size_t ld, int heads, int threads) {
+  constexpr int kChunks = D / 8;
+  const int chunks = heads * kChunks;
+  for (int i = threadIdx.x; i < rows * chunks; i += threads) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    const int head = c / kChunks;
+    const bool valid = r < n;
+    cp_async16(dst + (static_cast<size_t>(head) * rows + r) * kPitch<D> + 8 * (c - head * kChunks),
+               src + (valid ? r * ld + 8 * c : 0), valid);
   }
 }
 

@@ -48,7 +48,10 @@
 // roofline study of tools/roofline_attn.py (S5), whose forward peels
 // (fwd_body :64-88, pallas_call :95) it replaces: tic_attention_fwd_peel runs
 // the same grid and staging cut to dma, layout or matmul; the model's
-// launches take kFull, the kernel as described above.
+// launches take kFull, the kernel as described above. kPostMul runs the
+// softmax variant of tools/bench_attn6.py (S2) that scales O by 1 / l after
+// PV (tic_attention_fwd_softmax); the model's launches leave it off. The
+// other studies' tiles (S1, S3, S4) are slab_attention_tile.cu.
 //
 // f32: attention_fwd_kernel, SIMT (tensor cores take f32 only as TF32, about
 // three decimal digits, too coarse for the f32 bound). Each warp takes one
@@ -217,8 +220,11 @@ size_t mma_smem_bytes(int n) {
 // back as it came, kLayout too after every fragment load of K and V of both
 // sweeps, kMatmul writes P V with P = S D^-1/2 / N (score_scale then D^-1/2),
 // kFull is the kernel. keep_folds stores the peels' folded fragments and
-// products over the output; every launch passes 0.
-template <int D, int kBlockWarps, bool kExp2, Peel kPeel = Peel::kFull>
+// products over the output; every launch passes 0. kPostMul (S2's post_mul,
+// tic_attention_fwd_softmax; kFull only): sweep 2 rounds the unnormalised
+// e = exp2(S - m) to bf16 for PV and O's f32 fragments are scaled by their
+// rows' 1 / l (rows g and g + 8 each their own) before the store.
+template <int D, int kBlockWarps, bool kExp2, Peel kPeel = Peel::kFull, bool kPostMul = false>
 __global__ void __launch_bounds__(kBlockWarps * 32)
     attention_fwd_mma_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
                              const bf16* __restrict__ v_in, long long batch_stride,
@@ -316,11 +322,26 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int r = 0; r < 2; ++r)
-            pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]) * inv_l[r],
-                                      exp_base<kExp2>(s[j][2 * r + 1] - m[r]) * inv_l[r]);
+          for (int r = 0; r < 2; ++r) {
+            if constexpr (kPostMul) {
+              pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]),
+                                        exp_base<kExp2>(s[j][2 * r + 1] - m[r]));
+            } else {
+              pa[2 * j + r] = pack_bf16(exp_base<kExp2>(s[j][2 * r] - m[r]) * inv_l[r],
+                                        exp_base<kExp2>(s[j][2 * r + 1] - m[r]) * inv_l[r]);
+            }
+          }
         accumulate_rows<D>(o, pa, vs, kRows * kc, lane);
       }
+    }
+  }
+  if constexpr (kPostMul) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= inv_l[0];
+      o[j][1] *= inv_l[0];
+      o[j][2] *= inv_l[1];
+      o[j][3] *= inv_l[1];
     }
   }
   if constexpr (kPeel == Peel::kDma || kPeel == Peel::kLayout) {
@@ -336,12 +357,13 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
   }
 }
 
-template <int D, int kBlockWarps, bool kExp2 = true, Peel kPeel = Peel::kFull>
+template <int D, int kBlockWarps, bool kExp2 = true, Peel kPeel = Peel::kFull,
+          bool kPostMul = false>
 int launch_mma(const bf16* q, const bf16* k, const bf16* v, long long batch_stride,
                int row_stride, void* out, int b, int n, int num_heads, float scale,
                cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>(n);
-  auto kernel = attention_fwd_mma_kernel<D, kBlockWarps, kExp2, kPeel>;
+  auto kernel = attention_fwd_mma_kernel<D, kBlockWarps, kExp2, kPeel, kPostMul>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -489,5 +511,29 @@ extern "C" int tic_attention_fwd_peel(const void* qkv, void* out, int b, int n,
     case 2: return launch_mma<64, 4, true, Peel::kMatmul>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
     case 3: return launch_mma<64, 4, true, Peel::kFull>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A measurement entry point, on no path of the model: S2's softmax variants
+// (tools/bench_attn6.py::make_fwd, pallas_call :55) on K1's kernel and grid,
+// the slab form at D 64: `exp2` 1 (scores scaled by log2(e), K1's route) or
+// 0 (exp), `post_mul` 0 (P = e / l rounded before PV: with exp2, K1 itself)
+// or 1 (e rounded, O scaled by 1 / l after PV). Arguments as
+// tic_slab_attention_fwd without the dtype.
+extern "C" int tic_attention_fwd_softmax(const void* qkv, void* out, int b, int n,
+                                         int num_heads, int d, float scale, int exp2,
+                                         int post_mul, void* stream) {
+  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int c = num_heads * d;
+  const bf16* k = q + c;
+  const bf16* v = q + 2 * c;
+  const long long batch = 3LL * n * c;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (2 * (exp2 ? 1 : 0) + (post_mul ? 1 : 0)) {
+    case 3: return launch_mma<64, 4, true, Peel::kFull, true>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    case 2: return launch_mma<64, 4, true>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    case 1: return launch_mma<64, 4, false, Peel::kFull, true>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
+    default: return launch_mma<64, 4, false>(q, k, v, batch, 3 * c, out, b, n, num_heads, scale, s);
   }
 }

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: attention forward
-and backward, patch embedding, and the slab null copy of the kernel studies)
-with ``nvcc`` + ctypes.
+and backward, patch embedding, and the kernel studies' slab null copy and
+attention tiles) with ``nvcc`` + ctypes.
 
 Each source compiles to an object file, all of them at once (one ``nvcc``
 process per source), and the objects link into one shared library with a
@@ -131,4 +131,15 @@ def load_library() -> ctypes.CDLL:
     lib.tic_attention_bwd_peel.restype = i32
     lib.tic_slab_null_copy.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.tic_slab_null_copy.restype = i32
+    lib.tic_attention_tile_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.tic_attention_tile_smem_bytes.restype = ctypes.c_size_t
+    lib.tic_attention_fwd_tile.argtypes = [ptr, ptr, i32, i32, i32, i32, f32,
+                                           i32, i32, i32, i32, i32, ptr]
+    lib.tic_attention_fwd_tile.restype = i32
+    lib.tic_attention_fwd_softmax.argtypes = [ptr, ptr, i32, i32, i32, i32,
+                                              f32, i32, i32, ptr]
+    lib.tic_attention_fwd_softmax.restype = i32
+    lib.tic_attention_bwd_tile.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                           i32, f32, i32, i32, i32, i32, ptr]
+    lib.tic_attention_bwd_tile.restype = i32
     return lib

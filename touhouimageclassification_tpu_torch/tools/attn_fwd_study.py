@@ -10,10 +10,11 @@ model) it times, on the (B, N, 3C) slab of ViT-L (N 197, C 1024, 16 heads of
 bucket 1), each of
 
 - 64, 32 or 16 query rows a block (4, 2 or 1 warps): a question of this
-  port's own grid (``tools/bench_attn4.py`` asks another: how many whole
-  images one grid step takes, its ``block_b``);
-- ``exp2`` of scores scaled by log2(e) against ``exp``: one of the
-  questions of ``tools/bench_attn6.py``;
+  port's own grid (the TPU study ``tools/bench_attn4.py`` asks another, how
+  many whole images one grid step takes: the port's ``tools.bench_attn4``);
+- ``exp2`` of scores scaled by log2(e) against ``exp``: half of the TPU
+  study ``tools/bench_attn6.py``, whose four variants (with the divide of P
+  before PV or 1 / l after it) the port's ``tools.bench_attn6`` times;
 
 and holds each against the plain version (max |diff| and relative
 difference in norm). It also times the model's own launch
