@@ -3,7 +3,8 @@
 
 Drives the port's serve path and its train step
 (``touhouimageclassification_tpu_torch``) at the full width and depth of
-ViT-Large/16 at 224x224, and of ResNet-152 at 256x256, with random weights
+ViT-Large/16 at 224x224, of ResNet-152 at 256x256, and of the ResMoE and
+TreeViT mixtures of nine ViT-Base/16 members at 224x224, with random weights
 made from a seed, through the entry points a user would call: with the default configuration
 (``attention_impl='fused'``, ``patch_embed_impl='xla'``) and with
 ``attention_impl='flash'`` + ``patch_embed_impl='pallas'``. Phases, each
@@ -94,7 +95,27 @@ fatal on failure:
     (backward) bit for bit, at B 64 and 128 and on ragged shapes (B 1, 2, 3;
     N 16, 67, 197, 257), the S2 variants to their plain versions (exp2
     without post_mul to K1 bit for bit), a tile past shared memory (N 577)
-    raising, and ``tile_smem_bytes`` equal to the C sums.
+    raising, and ``tile_smem_bytes`` equal to the C sums;
+15. the mixture families at the presets' full width (8 + 1 ViT-B/16
+    members at 224x224, 120 classes, random weights from seed 0), K1 and K2
+    counted on every path (108 K1 launches a forward, 108 K2 a train step
+    where the loss reads all nine members): ResMoE in bf16 against the same
+    weights with plain attention in its members (each member's logits
+    within the whole-model bound, the gate's ``top_i`` equal wherever its
+    top-3 gaps exceed it, the combined logits where the routes agree),
+    sparse ``feature`` and ``image`` dispatch against dense at capacity
+    factor E/K, bucket-1 p50 and bucket-64 img/s; 16 steps of the
+    ``resmoe`` preset (batch 4, SGD, 4-step accumulation: finite, none
+    skipped, img/s, peak memory) and one sparse step with its routing
+    telemetry; ``train.resmoe`` for one epoch, ``--transform``, serve
+    ``--full`` from the export (equal to a Predictor on the trained model),
+    ``infer.filter --model resmoe`` and the accuracy sweep's ResMoE row;
+    TreeViT's dense-eval forward and serving, 16 capacity-dispatch steps of
+    the ``treevit`` preset's full stage, ``train.treevit --stage all`` (root
+    -> sons -> full, one epoch each), ``--transform`` and serve; then K1 and
+    K2 alone at ViT-B's width (N 197, C 768, 12 heads, bf16) and B 2, 4 and
+    64 against their plain versions, timed around one launch and as device
+    time beside SDPA (and its autograd backward) and the bytes bound.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -198,6 +219,17 @@ VARIANTS = {
     "xla": dict(attention_impl="xla"),
     "flash+pallas": dict(attention_impl="flash", patch_embed_impl="pallas"),
 }
+# Phase 15, the mixture families at the presets' full width: ResMoE's 8
+# experts + gate and TreeViT's 8 sons + root, each member a ViT-B/16 (12
+# encoder layers) at 224x224 on the default 'fused' attention, so a forward
+# launches K1 108 times. K1 and K2 are timed alone at ViT-B's width and the
+# mixtures' batches: a member's share of a bucket-1 request and of the
+# preset's batch 4 (TreeViT's sons and sparse experts see capacity 2), and
+# the judge's bucket 64.
+MIX_MEMBERS = 9
+VIT_B_LAYERS = 12
+MIX_K1 = MIX_MEMBERS * VIT_B_LAYERS
+VIT_B_BATCHES = (2, 4, 64)
 
 
 def hf_vit_state_dict(hidden: int, layers: int, mlp: int, num_classes: int,
@@ -1969,6 +2001,514 @@ def phase_tile_studies(torch, attn, study):
     return entries
 
 
+def zero_counts(attn) -> None:
+    """Set K1's and K2's launch counts and routes to 0 before a path."""
+    attn.launches = attn.bwd_launches = 0
+    attn.route_launches.update(mma=0, simt=0)
+
+
+def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
+    """K1's and K2's launches since :func:`zero_counts`: they must be
+    ``expect``, every one on the mma route (bf16)."""
+    made = (attn.launches, attn.bwd_launches)
+    print(f"{what}: K1/K2 launches {made} (expected {expect}), by route "
+          f"{attn.route_launches}")
+    if made != expect or attn.route_launches != {"mma": sum(made),
+                                                 "simt": 0}:
+        raise AssertionError(f"{what}: K1/K2 launches {made}, routes "
+                             f"{attn.route_launches}, expected {expect} on "
+                             "mma")
+    return made
+
+
+def normalised(torch, imgs, mean, std, dev):
+    x = torch.from_numpy(imgs).to(dev).float() / 255.0
+    return (x - torch.tensor(mean, device=dev).float()) / torch.tensor(
+        std, device=dev).float()
+
+
+def serve_rates(pred, imgs) -> tuple[float, float, int]:
+    """Bucket-1 p50 (ms, 60 requests after 5) and bucket-64 img/s (10
+    batches after 2) of a Predictor; returns them and the forwards made."""
+    for _ in range(5):
+        pred.predict_array(imgs[:1])
+    lat = []
+    for i in range(60):
+        t0 = time.perf_counter()
+        pred.predict_array(imgs[i % 64:i % 64 + 1])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(2):
+        pred.predict_array(imgs)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pred.predict_array(imgs)
+    rate = 10 * 64 / (time.perf_counter() - t0)
+    return statistics.median(lat), rate, 5 + 60 + 2 + 10
+
+
+def mixture_serve(torch, attn, serve, model, imgs, mean, std, dev,
+                  what: str) -> tuple[dict, tuple[int, int]]:
+    """A bf16 mixture behind a Predictor: bucket-1 p50, bucket-64 img/s,
+    K1 launched MIX_K1 times a forward, profiles of one bucket-1 and one
+    bucket-64 forward. Returns the numbers and K1's and K2's launches."""
+    pred = serve.Predictor(model=model, class_to_idx={
+        f"c{i}": i for i in range(NUM_CLASSES)}, image_size=(224, 224),
+        mean=mean, std=std, device=dev)
+    zero_counts(attn)
+    p50, rate, forwards = serve_rates(pred, imgs)
+    launches = read_counts(attn, f"{what} serve, {forwards} forwards",
+                           (MIX_K1 * forwards, 0))
+    print(f"serve, {what} bf16 (9 ViT-B/16 members, 224x224): bucket-1 p50 "
+          f"{p50:.3f} ms (60 requests), bucket-64 {rate:.2f} img/s (10 "
+          f"batches)")
+    profile(torch, lambda: pred.predict_array(imgs[:1]),
+            f"{what} serve bucket-1 forward")
+    profile(torch, lambda: pred.predict_array(imgs),
+            f"{what} serve bucket-64 forward")
+    return {"serve_p50_ms": p50, "serve_img_s": rate}, launches
+
+
+def phase_resmoe_serve(torch, attn, serve, create_model, mean, std, dev):
+    """Phase 15, ResMoE serving (see the module docstring)."""
+    from touhouimageclassification_tpu_torch.config import VIT_BASE
+
+    fused = create_model("resmoe", num_classes=NUM_CLASSES, device=dev,
+                         seed=SEED).eval()
+    cfg = fused.cfg
+    weights = fused.state_dict()
+
+    def twin(**over):
+        model = create_model("resmoe", num_classes=NUM_CLASSES, device=dev,
+                             **over)
+        model.load_state_dict(weights)
+        return model.eval()
+
+    plain = twin(expert_vit=dataclasses.replace(VIT_BASE,
+                                                attention_impl="xla"))
+    rng = np.random.default_rng(SEED + 15)
+    imgs = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    x = normalised(torch, imgs[:8], mean, std, dev)
+    with torch.inference_mode():
+        zero_counts(attn)
+        got = fused(x)
+        read_counts(attn, "ResMoE dense forward, B 8", (MIX_K1, 0))
+        ref = plain(x)
+        members = [(fused.gate.vit(x), plain.gate.vit(x))] + [
+            (e(x), p(x)) for e, p in zip(fused.experts, plain.experts)]
+    member_diff = max((a - b).abs().max().item() for a, b in members)
+    # the top-k sets agree wherever every gap among the top k + 1 gate
+    # logits exceeds the bound; combined logits are held where they agree,
+    # to the bound scaled by the largest expert logit (the softmaxed top-k
+    # weights move by at most half the gate logits' difference)
+    gate = members[0][0].sort(dim=-1, descending=True).values
+    gaps = gate[:, :cfg.top_k] - gate[:, 1:cfg.top_k + 1]
+    sure = (gaps > LOGIT_TOL).all(-1)
+    agree = (got[2] == ref[2]).all(-1)
+    scale = 1 + max(a.abs().max().item() for a, _ in members[1:])
+    comb_diff = ((got[0] - ref[0]).abs().max(-1).values[agree].max().item()
+                 if agree.any() else 0.0)
+    print(f"ResMoE bf16 B 8, 'xla' members vs 'fused': max |d logit| of the "
+          f"9 members {member_diff:.3e} (bound {LOGIT_TOL}); top_i equal on "
+          f"{int(agree.sum())} of 8 rows, required on the {int(sure.sum())} "
+          f"with every top-{cfg.top_k + 1} gap > {LOGIT_TOL}; combined "
+          f"logits on those rows max |diff| {comb_diff:.3e} (bound "
+          f"{LOGIT_TOL * scale:.3e})")
+    if (member_diff > LOGIT_TOL or not bool((agree | ~sure).all())
+            or comb_diff > LOGIT_TOL * scale
+            or not torch.isfinite(got[0]).all()):
+        raise AssertionError("ResMoE 'xla' vs 'fused' disagreement")
+    del plain
+    factor = cfg.num_experts / cfg.top_k
+    for level in ("feature", "image"):
+        sparse = twin(routing="sparse", dispatch_level=level,
+                      capacity_factor=factor)
+        with torch.inference_mode():
+            zero_counts(attn)
+            out = sparse(x)
+            read_counts(attn, f"ResMoE sparse {level} forward, B 8",
+                        (MIX_K1, 0))
+        diff = (out[0] - got[0]).abs().max().item()
+        print(f"ResMoE sparse '{level}' dispatch at capacity factor "
+              f"{factor:g} (no drops) vs dense: top_i equal "
+              f"{bool(torch.equal(out[2], got[2]))}, max |d logit| "
+              f"{diff:.3e} (bound {LOGIT_TOL})")
+        if not torch.equal(out[2], got[2]) or diff > LOGIT_TOL:
+            raise AssertionError(f"ResMoE sparse {level} vs dense")
+        del sparse
+    numbers, launches = mixture_serve(torch, attn, serve, fused, imgs, mean,
+                                      std, dev, "ResMoE dense")
+    del fused
+    torch.cuda.empty_cache()
+    return numbers, launches
+
+
+def train_numbers(torch, attn, trainer, batches, what: str,
+                  expect: tuple[int, int], steps: int, dev):
+    """``steps`` checked train steps (finite, none skipped, K1/K2
+    ``expect`` each), then ``steps`` timed ones (img/s, peak memory) and a
+    profile of one. Returns the numbers and the checked steps' K1/K2
+    launches."""
+    state = trainer.state
+    opt = state.optimizer
+    b = trainer.cfg.global_batch_size
+    zero_counts(attn)
+    for i in range(steps):
+        ticks = opt.count * opt.k + opt.mini_step
+        m = trainer.train_step(state, batches[i % len(batches)])
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{what} step {i + 1}: {m}")
+        if opt.count * opt.k + opt.mini_step != ticks + 1:
+            raise AssertionError(f"{what} step {i + 1} skipped by the guard")
+    print(f"{what}, {steps} steps: last {json.dumps(m)}; optimizer updates "
+          f"{opt.count} (accumulating {opt.k})")
+    launches = read_counts(attn, f"{what}, {steps} steps",
+                           (expect[0] * steps, expect[1] * steps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        trainer.train_step(state, batches[i % len(batches)])
+    secs = time.perf_counter() - t0
+    out = {"train_img_s": steps * b / secs,
+           "train_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    print(f"{what}, batch {b}: {out['train_img_s']:.2f} img/s "
+          f"({1e3 * secs / steps:.2f} ms/step, {steps} steps), peak memory "
+          f"{out['train_peak_gib']:.2f} GiB")
+    profile(torch, lambda: trainer.train_step(state, batches[0]),
+            f"{what} batch-{b} step")
+    return out, launches
+
+
+def staged_batches(trainer, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    b = trainer.cfg.global_batch_size
+    return [trainer.stage({
+        "image": rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8),
+        "label": rng.integers(0, NUM_CLASSES, b).astype(np.int32),
+        "mask": np.ones(b, bool)}) for _ in range(n)]
+
+
+def phase_resmoe_train(torch, attn, create_model, Trainer, data: str, dev):
+    """Phase 15, ResMoE training with the resmoe preset, dense, then one
+    sparse step with its routing telemetry."""
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.train.tasks import MoETask
+
+    cfg = dataclasses.replace(PRESETS["resmoe"], data_dir=data, seed=SEED)
+
+    def trainer_for(**over):
+        model = create_model("resmoe", num_classes=NUM_CLASSES,
+                             param_dtype="float32", device=dev, seed=SEED,
+                             **over)
+        trainer = Trainer(cfg, model=model, task=MoETask(model.cfg),
+                          device=dev)
+        trainer.init_state()
+        return trainer
+
+    trainer = trainer_for()
+    batches = staged_batches(trainer, 4, SEED + 16)
+    numbers, launches = train_numbers(torch, attn, trainer, batches,
+                                      "ResMoE train (resmoe preset, dense)",
+                                      (MIX_K1, MIX_K1), 8, dev)
+    if trainer.state.optimizer.count != 4:
+        raise AssertionError("16 steps at grad_accum_steps 4 made "
+                             f"{trainer.state.optimizer.count} updates")
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = trainer_for(routing="sparse")
+    zero_counts(attn)
+    m = trainer.train_step(trainer.state, batches[0])
+    read_counts(attn, "ResMoE sparse train step", (MIX_K1, MIX_K1))
+    print(f"ResMoE sparse (feature) train step: {json.dumps(m)}")
+    e = trainer.model.cfg.num_experts
+    if not (np.isfinite(m["loss"]) and 0 <= m["drop_frac"] <= 1
+            and 1 / e <= m["expert_load_max"] <= 1
+            and 0 <= m["expert_load_min"] <= 1 / e
+            and np.isfinite(m["balance_loss"])):
+        raise AssertionError("ResMoE sparse telemetry")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return numbers, launches
+
+
+def judge_csv_rows(path: str) -> list[str]:
+    with open(path, newline="") as f:
+        return [r[1] for r in csv.reader(f)]
+
+
+def export_matches_predictor(serve, model_flag: str, export: str, trained,
+                             data: str, work: str, dev) -> None:
+    """``serve --full`` from the export equals a Predictor on the trained
+    model (served in bf16, normalised by the export's mean and std)."""
+    from touhouimageclassification_tpu_torch.data import get_class_to_idx
+    from touhouimageclassification_tpu_torch.models import (EXPORT_CONFIGS,
+                                                            config_from_dict)
+
+    out_csv = os.path.join(work, f"judge_{model_flag}.csv")
+    serve.main(["--model", model_flag, "--weights", export, "--image", data,
+                "--data-dir", data, "--output", out_csv, "--full",
+                "--canvas-cache", "off"])
+    with open(os.path.join(export, "serving_meta.json")) as f:
+        meta = json.load(f)
+    key = next(k for k in EXPORT_CONFIGS if k in meta)
+    family, config = EXPORT_CONFIGS[key]
+    model = family(config_from_dict(config, meta[key]), device=dev)
+    model.load_state_dict(trained.state_dict())
+    pred = serve.Predictor(model=model, class_to_idx=get_class_to_idx(data),
+                           image_size=(224, 224), mean=meta["mean"],
+                           std=meta["std"], device=dev)
+    mem_csv = os.path.join(work, f"judge_{model_flag}_memory.csv")
+    serve.full_judge(pred, data, mem_csv, progress=False, canvas_cache="off")
+    rows = judge_csv_rows(out_csv), judge_csv_rows(mem_csv)
+    if rows[0] != rows[1] or len(rows[0]) != NUM_CLASSES * PER_CLASS + 1:
+        raise AssertionError(f"serve --model {model_flag} from the export "
+                             "disagrees with the trained model")
+    print(f"serve --model {model_flag} --weights <export> --full: "
+          f"{len(rows[0]) - 1} predictions, equal to a Predictor on the "
+          "trained model")
+
+
+def fit_plan(cfg, data: str) -> tuple[int, int]:
+    """Train steps and val batches of one epoch of ``cfg`` on ``data``."""
+    from touhouimageclassification_tpu_torch.data import (random_split,
+                                                         scan_image_folder)
+
+    tr_idx, va_idx = random_split(len(scan_image_folder(data)),
+                                  cfg.train_split, cfg.seed)
+    b = cfg.global_batch_size
+    steps, val = len(tr_idx) // b, -(-len(va_idx) // b)
+    return (min(steps, cfg.limit_train_batches or steps),
+            min(val, cfg.limit_val_batches or val))
+
+
+def phase_resmoe_cli(torch, attn, serve, data: str, work: str, dev) -> dict:
+    """Phase 15, the resmoe launcher for one epoch, --transform, serve,
+    filter and the accuracy sweep's ResMoE row on the export. Returns K1's
+    and K2's launches by path."""
+    from touhouimageclassification_tpu_torch.analysis import acc
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.infer import filter as filt
+    from touhouimageclassification_tpu_torch.train import resmoe
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    cfg = dataclasses.replace(PRESETS["resmoe"], data_dir=data, seed=SEED)
+    steps, val_batches = fit_plan(cfg, data)
+    argv = ["--data-dir", data, "--max-epochs", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    launches = {}
+    zero_counts(attn)
+    t0 = time.perf_counter()
+    trainer = resmoe.main([*argv, "--no-resume"])
+    secs = time.perf_counter() - t0
+    launches["resmoe_fit"] = read_counts(
+        attn, f"resmoe fit, 1 epoch: {steps} steps + {val_batches} val "
+        "batches", (MIX_K1 * (steps + val_batches), MIX_K1 * steps))
+    records = [r for r in fit_records("log", cfg.train_id) if "epoch" in r]
+    if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
+            "train_loss", "val_loss", "val_acc", "balance_loss")):
+        raise AssertionError(f"resmoe fit records {records}")
+    print(f"resmoe fit: {secs:.2f} s with the model build; record "
+          f"{json.dumps(records[0])}")
+    export = os.path.join(work, "export_resmoe")
+    resmoe.main([*argv, "--transform", export])
+    shutil.rmtree("checkpoint")
+    forwards = -(-NUM_CLASSES * PER_CLASS // 64)
+    zero_counts(attn)
+    export_matches_predictor(serve, "resmoe", export, trainer.state.model,
+                             data, work, dev)
+    launches["resmoe_serve_export"] = read_counts(
+        attn, "serve --model resmoe from the export, and the Predictor",
+        (2 * MIX_K1 * forwards, 0))
+    del trainer
+    torch.cuda.empty_cache()
+
+    zero_counts(attn)
+    judge_csv = os.path.join(work, "filter_resmoe.csv")
+    kept_dir = os.path.join(work, "filtered_resmoe")
+    filt.main(["--model", "resmoe", "--weights", export, "--image", data,
+               "-od", kept_dir, "--csv-file", judge_csv, "--canvas-cache",
+               "off"])
+    launches["resmoe_filter"] = read_counts(
+        attn, "filter --model resmoe", (MIX_K1 * forwards, 0))
+    with open(judge_csv, newline="") as f:
+        correct = sum(r["correct"] == "True" for r in csv.DictReader(f))
+    kept = sum(len(files) for _, _, files in os.walk(kept_dir))
+    if kept != correct:
+        raise AssertionError(f"filter kept {kept}, correct rows {correct}")
+
+    zero_counts(attn)
+    row = next(r for r in acc.MODELS if r[0] == "ResMoE")
+    rows = acc.run_sweep([(row[0], row[1], export)], test_dir=data,
+                         result_dir=os.path.join(work, "result_resmoe"),
+                         data_dir=data, device="cuda")
+    launches["resmoe_acc"] = read_counts(
+        attn, "acc.run_sweep, the ResMoE row", (MIX_K1 * forwards, 0))
+    print(f"filter --model resmoe kept {kept} (the judge's correct rows); "
+          f"acc.run_sweep ResMoE row {rows}")
+    if rows[0]["status"] != "ok" or not 0 <= rows[0]["acc"] <= 1:
+        raise AssertionError("acc sweep, the ResMoE row")
+    os.chdir(cwd)
+    return launches
+
+
+def phase_treevit(torch, attn, serve, create_model, Trainer, data: str,
+                  work: str, mean, std, dev) -> tuple[dict, dict]:
+    """Phase 15, TreeViT: a dense-eval forward and serving, the treevit
+    preset's capacity-dispatch train step and its rate, then the staged
+    launcher (root -> sons -> full, one epoch each), --transform and serve.
+    Returns the numbers and K1's / K2's launches by path."""
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.data import scan_image_folder
+    from touhouimageclassification_tpu_torch.train import treevit
+    from touhouimageclassification_tpu_torch.train.tasks import TreeFullTask
+
+    launches = {}
+    model = create_model("treevit", num_classes=NUM_CLASSES, device=dev,
+                         seed=SEED).eval()
+    rng = np.random.default_rng(SEED + 17)
+    imgs = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        zero_counts(attn)
+        combined, choice, kept = model(normalised(torch, imgs[:8], mean, std,
+                                                  dev))
+        read_counts(attn, "TreeViT dense-eval forward, B 8", (MIX_K1, 0))
+    if not (combined.shape == (8, NUM_CLASSES) and choice.shape == (8, 8)
+            and torch.isfinite(combined).all() and bool((kept == 1).all())):
+        raise AssertionError("TreeViT dense-eval forward")
+    numbers, launches["treevit_serve"] = mixture_serve(
+        torch, attn, serve, model, imgs, mean, std, dev, "TreeViT dense-eval")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(PRESETS["treevit"], data_dir=data, seed=SEED)
+    index = scan_image_folder(data)
+    cmap = treevit.make_class_to_category(
+        treevit.default_category_map(index.classes, 8), index.class_to_idx)
+    tree = create_model("treevit", num_classes=NUM_CLASSES,
+                        param_dtype="float32", device=dev, seed=SEED)
+    trainer = Trainer(cfg, model=tree, task=TreeFullTask(tree.cfg, cmap),
+                      device=dev)
+    trainer.init_state()
+    batches = staged_batches(trainer, 4, SEED + 18)
+    train, launches["treevit_train"] = train_numbers(
+        torch, attn, trainer, batches,
+        "TreeViT train (treevit preset, full stage, capacity dispatch)",
+        (MIX_K1, MIX_K1), 8, dev)
+    numbers.update(train)
+    del trainer, tree, batches
+    torch.cuda.empty_cache()
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    steps, val_batches = fit_plan(cfg, data)
+    argv = ["--data-dir", data, "--max-epochs", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    zero_counts(attn)
+    t0 = time.perf_counter()
+    trainer = treevit.main([*argv, "--no-resume"])
+    secs = time.perf_counter() - t0
+    # the backward runs through the members in the loss's graph: the root
+    # stage's loss reads the root only, the teacher-forced sons stage's the
+    # sons only, the full stage's all nine
+    launches["treevit_fit"] = read_counts(
+        attn, f"treevit --stage all, 1 epoch a stage: {steps} steps + "
+        f"{val_batches} val batches each",
+        (3 * MIX_K1 * (steps + val_batches),
+         steps * (VIT_B_LAYERS + (MIX_MEMBERS - 1) * VIT_B_LAYERS + MIX_K1)))
+    for stage in ("root", "sons", "full"):
+        records = [r for r in fit_records("log", f"{cfg.train_id}_{stage}")
+                   if "epoch" in r]
+        if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
+                "train_loss", "val_loss", "val_acc")):
+            raise AssertionError(f"treevit {stage} records {records}")
+        print(f"treevit stage {stage}: {json.dumps(records[0])}")
+    print(f"treevit --stage all: {secs:.2f} s with the model build")
+    export = os.path.join(work, "export_treevit")
+    treevit.main([*argv, "--stage", "full", "--transform", export])
+    shutil.rmtree("checkpoint")
+    export_matches_predictor(serve, "treevit", export, trainer.state.model,
+                             data, work, dev)
+    del trainer
+    torch.cuda.empty_cache()
+    os.chdir(cwd)
+    return numbers, launches
+
+
+def phase_vit_b_kernels(torch, attn) -> list[dict]:
+    """Phase 15, K1 and K2 alone at ViT-B's width (N 197, C 768, 12 heads,
+    bf16) and the mixtures' batches: against their plain versions, timed
+    around one launch (``ms``) and as device time (``device_ms``), beside
+    SDPA and its autograd backward and the bytes bound."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n, c, h = 197, 768, 12
+    rows = []
+    for b in VIT_B_BATCHES:
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn(b, n, c, generator=gen, device=dev).to(torch.bfloat16)
+        views = qkv.view(b, n, 3, h, c // h).unbind(2)
+        leaf = qkv.detach().requires_grad_()
+        with torch.inference_mode():
+            out = on_route(attn, torch.bfloat16, 1,
+                           lambda: attn.slab_attention(qkv, h))
+            err = check_close(torch, f"K1 vs plain, ViT-B B {b}", out,
+                              attn.slab_attention_reference(qkv, h),
+                              torch.bfloat16)
+            fwd = dict(
+                batch=b, max_abs_err=err,
+                ms=cuda_ms(lambda: attn.slab_attention(qkv, h)),
+                device_ms=device_ms(lambda: attn.slab_attention(qkv, h)),
+                plain_ms=cuda_ms(
+                    lambda: attn.slab_attention_reference(qkv, h)),
+                library_ms=cuda_ms(lambda: sdpa(torch, *views)),
+                library_device_ms=device_ms(lambda: sdpa(torch, *views)))
+            out = on_route(attn, torch.bfloat16, 1,
+                           lambda: attn.slab_attention_backward(qkv, g, h))
+            err = check_close(torch, f"K2 vs plain, ViT-B B {b}", out,
+                              attn.slab_attention_backward_reference(
+                                  qkv, g, h), torch.bfloat16)
+            bwd = dict(
+                batch=b, max_abs_err=err,
+                ms=cuda_ms(lambda: attn.slab_attention_backward(qkv, g, h)),
+                device_ms=device_ms(
+                    lambda: attn.slab_attention_backward(qkv, g, h)),
+                plain_ms=cuda_ms(
+                    lambda: attn.slab_attention_backward_reference(qkv, g,
+                                                                   h)))
+        bwd["library_ms"] = sdpa_backward_ms(
+            torch, (leaf,), leaf.view(b, n, 3, h, c // h).unbind(2), g)
+        for rec, backward in ((fwd, False), (bwd, True)):
+            rec["bound_ms"], rec["bound_by"] = attention_bound(
+                b, n, c, h, torch.bfloat16, backward)
+        print(f"ViT-B bf16 B {b} (N 197, C 768, H 12; {card_line()}): K1 "
+              f"{json.dumps(fwd)}; K2 {json.dumps(bwd)}")
+        rows.append((fwd, bwd))
+    return rows
+
+
+def phase_mixtures(torch, attn, serve, create_model, Trainer, data: str,
+                   work: str, mean, std, dev) -> tuple[dict, dict, list]:
+    """Phase 15 (see the module docstring). Returns the numbers by family,
+    K1's and K2's launches by path, and the ViT-B kernel rows."""
+    numbers, launches = {}, {}
+    numbers["ResMoE"], launches["resmoe_serve"] = phase_resmoe_serve(
+        torch, attn, serve, create_model, mean, std, dev)
+    train, launches["resmoe_train"] = phase_resmoe_train(
+        torch, attn, create_model, Trainer, data, dev)
+    numbers["ResMoE"].update(train)
+    launches.update(phase_resmoe_cli(torch, attn, serve, data, work, dev))
+    numbers["TreeViT"], tree_launches = phase_treevit(
+        torch, attn, serve, create_model, Trainer, data, work, mean, std, dev)
+    launches.update(tree_launches)
+    card = card_line()
+    for family, values in numbers.items():
+        print(f"{family} at full width ({card}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in values.items()))
+    return numbers, launches, phase_vit_b_kernels(torch, attn)
+
+
 def profile(torch, fn, label: str):
     """Device time by kernel of one ``fn()`` (a train step or a serve
     forward), and the device's busy share of its wall time."""
@@ -2067,8 +2607,11 @@ def main() -> int:
         pipeline_launches = phase_resnet_pipeline(
             torch, attn, serve, create_model, Trainer, data, work, vit_export,
             mean_std["mean"], mean_std["std"], layers, dev)
-    study_kernels = phase_studies(torch, attn, study)
-    tile_kernels = phase_tile_studies(torch, attn, study)
+        study_kernels = phase_studies(torch, attn, study)
+        tile_kernels = phase_tile_studies(torch, attn, study)
+        _, mix_launches, vit_b = phase_mixtures(
+            torch, attn, serve, create_model, Trainer, data, work,
+            mean_std["mean"], mean_std["std"], dev)
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -2081,10 +2624,14 @@ def main() -> int:
          "attention.py:455", {"serve": serve_launches,
                               "train": train_launches[0],
                               "fit": fit_launches[0],
-                              **pipeline_launches}, "fit"),
+                              **pipeline_launches,
+                              **{path: k1 for path, (k1, _) in
+                                 mix_launches.items()}}, "fit"),
         ("K2", "slab_attention_bwd", "slab_attention_bwd.cu",
          "attention.py:482", {"train": train_launches[1],
-                              "fit": fit_launches[1]}, "fit"),
+                              "fit": fit_launches[1],
+                              **{path: k2 for path, (_, k2) in
+                                 mix_launches.items() if k2}}, "fit"),
         ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),
@@ -2103,6 +2650,9 @@ def main() -> int:
                               else attn.kernel_route(dt, 64))
               for dt in (torch.bfloat16, torch.float32)}
         for key in stats}
+    # K1 and K2 at the mixtures' ViT-B shapes (phase 15), by batch
+    stats["K1"]["vit_b"] = [fwd for fwd, _ in vit_b]
+    stats["K2"]["vit_b"] = [bwd for _, bwd in vit_b]
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + source,

@@ -9,7 +9,7 @@ the JAX package's, on the CPU.
   summation order, printed to four decimals);
 - ``run_sweep`` over a table of a ViT ``.pth``, a ResNet-18 ``.pth`` and a
   missing checkpoint writes the same ``acc.csv`` rows in both packages;
-  a ResMoE row raises the factory's NotImplementedError;
+  the table's ResMoE row scores a port ResMoE export;
 - ``init`` without ``--weights`` loads a port export written at the
   registry path, and a registry path with nothing there, or with a JAX
   Orbax export, raises the port's clear errors.
@@ -34,8 +34,11 @@ from touhouimageclassification_tpu.infer import serve as jax_serve
 from touhouimageclassification_tpu.models.resnet import ResNet as JaxResNet
 from touhouimageclassification_tpu.models.vit import ViT as JaxViT
 from touhouimageclassification_tpu_torch.analysis import acc
+from touhouimageclassification_tpu_torch.config import MoEConfig
+from touhouimageclassification_tpu_torch.data import get_class_to_idx
 from touhouimageclassification_tpu_torch.infer import filter as port_filter
 from touhouimageclassification_tpu_torch.infer import serve
+from touhouimageclassification_tpu_torch.models import MoEClassifier
 from touhouimageclassification_tpu_torch.models.resnet import ResNet
 from touhouimageclassification_tpu_torch.models.vit import ViT
 from touhouimageclassification_tpu_torch.train.checkpoint import save_params
@@ -186,13 +189,34 @@ def test_run_sweep_writes_the_same_acc_csv(dataset, weights, f32_models,
     assert acc.MODELS == jax_acc.MODELS
 
 
-def test_run_sweep_raises_for_an_unported_family(dataset, weights, tmp_path):
-    """The pinned table's ResMoE row, its checkpoint present: the factory's
-    NotImplementedError, not a quiet skip."""
-    _, res = weights
-    with pytest.raises(NotImplementedError, match="ResMoE"):
-        acc.run_sweep([("ResMoE", "resmoe", res)], test_dir=dataset,
-                      result_dir=str(tmp_path / "moe"), data_dir=dataset,
+def test_run_sweep_raises_for_an_unported_family(dataset, tmp_path):
+    """The pinned table's ResMoE row, once a family the port lacked: with a
+    port ResMoE export at its path (3 tiny experts, its ``moe_config`` in
+    the meta) the row loads and is scored, as the Predictor on the same
+    model scores it; a checkpoint of another family at that path raises."""
+    name, mtype, _ = next(r for r in acc.MODELS if r[0] == "ResMoE")
+    cfg = MoEConfig(num_experts=3, top_k=2, num_classes=N_CLASSES,
+                    expert_vit=port_config(TINY))
+    model = MoEClassifier(cfg, "float32", "cpu", seed=5)
+    export = tmp_path / "resmoe"
+    export.mkdir()
+    save_params(str(export / "params.safetensors"), model.state_dict())
+    (export / "serving_meta.json").write_text(json.dumps({
+        "model_type": "vit-moe", "epoch": 1, "mean": [0.5] * 3,
+        "std": [0.25] * 3, "moe_config": dataclasses.asdict(cfg)}))
+    rows = acc.run_sweep([(name, mtype, str(export))], test_dir=dataset,
+                         result_dir=str(tmp_path / "moe"), data_dir=dataset,
+                         canvas_cache="off", device="cpu")
+    pred = serve.Predictor(model=model, class_to_idx=get_class_to_idx(dataset),
+                           image_size=(32, 32), mean=np.full(3, 0.5),
+                           std=np.full(3, 0.25), device=torch.device("cpu"))
+    want = serve.full_judge(pred, dataset, progress=False, canvas_cache="off")
+    assert rows == [{"name": "ResMoE", "acc": want, "status": "ok"}]
+    (export / "serving_meta.json").write_text(json.dumps({
+        "model_type": "vit-moe", "mean": [0.5] * 3, "std": [0.25] * 3}))
+    with pytest.raises(ValueError, match="names no model config"):
+        acc.run_sweep([(name, mtype, str(export))], test_dir=dataset,
+                      result_dir=str(tmp_path / "moe2"), data_dir=dataset,
                       canvas_cache="off", device="cpu")
 
 

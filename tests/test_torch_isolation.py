@@ -112,12 +112,14 @@ def test_chip_smoke_imports_only_the_port():
 NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "device.py", "train/trainer.py", "train/optim.py",
                "train/losses.py", "ops/augment.py", "ops/mixup.py",
-               "models/resnet.py", "web/runtime.py")
+               "models/resnet.py", "web/runtime.py", "ops/moe_dispatch.py",
+               "models/resmoe.py", "models/treevit.py", "train/tasks.py")
 
 
 def test_kernel_wrapper_has_no_fallback():
     """The kernel wrappers (K1-K5), the build, the device choice, the train
-    modules that place tensors, the ResNet and the web daemon: no try/except
+    modules that place tensors, the ResNet, the mixtures' dispatch, models
+    and tasks, and the web daemon: no try/except
     to fall back with and no environment switch near a device. (The build
     reads CUDA_HOME to find nvcc; the web daemon reads the TIC_WEB_* names
     of its model, weights and dataset, never its device.)"""

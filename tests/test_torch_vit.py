@@ -135,15 +135,25 @@ def test_hf_checkpoint_matches_jax_loader(tmp_path, ext, ckpt_classes):
 
 def test_unported_options_raise():
     """What the port refuses: 'flash' with attention dropout (as JAX,
-    vit.py:127-131), unknown implementations, unported model families and a
-    wrong input size."""
+    vit.py:127-131), unknown implementations, unknown model types and a
+    wrong input size. Every family of the JAX registry builds, the mixtures
+    (ResMoE, TreeViT) included."""
     with pytest.raises(ValueError, match="attention_dropout_rate"):
         _vit(dataclasses.replace(TINY, attention_impl="flash",
                                  attention_dropout_rate=0.1), device="cpu")
     with pytest.raises(ValueError, match="patch_embed_impl"):
         _vit(dataclasses.replace(TINY, patch_embed_impl="conv"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ResMoE"):
-        create_model("resmoe", num_classes=10)
+    with pytest.raises(ValueError, match="Unknown model type"):
+        create_model("resmoe-xl", num_classes=10)
+    member = port_config(TINY)
+    for mt, over, members in (("resmoe", {"expert_vit": member}, "experts"),
+                              ("vit-moe", {"expert_vit": member}, "experts"),
+                              ("tree-vit", {"vit": member}, "sons"),
+                              ("treevit", {"vit": member}, "sons")):
+        model = create_model(mt, num_classes=10, compute_dtype="float32",
+                             device="cpu", **over)
+        assert len(getattr(model, members)) == 8, mt
+        assert model.eval()(torch.zeros(2, 32, 32, 3))[0].shape == (2, 10)
     with pytest.raises(ValueError, match="Input spatial size"):
         _vit(TINY, device="cpu")(torch.zeros(1, 16, 16, 3))
 

@@ -4,9 +4,9 @@
 The same pinned table of named checkpoints (:data:`MODELS`), a judge CSV
 per model cached under ``result/<name>.csv`` and the aggregate
 ``result/acc.csv`` (``name,acc,status``). A row whose checkpoint is missing
-is recorded as ``missing_checkpoint`` and the sweep goes on; a row whose
-family the port lacks (``resmoe``) raises the model factory's
-``NotImplementedError`` once its checkpoint exists. Each model is judged by
+is recorded as ``missing_checkpoint`` and the sweep goes on; every family
+of the table (ViT, ResNet, ResMoE) loads through ``infer.serve.init``.
+Each model is judged by
 the port's ``full_judge`` on ``--device`` (``cuda`` by default), in
 process, and dropped before the next.
 

@@ -10,10 +10,12 @@ differs:
 - weights go to the device once, in the model's compute dtype;
 - ``stage`` pads a batch in pinned host memory and starts a non-blocking
   upload, so the upload of batch i+1 overlaps the predict of batch i;
-- the model is any family the port has (ViT, ResNet), dispatched by the
-  model type or by the export's meta;
+- the model is any family the port has (ViT, ResNet, ResMoE, TreeViT),
+  dispatched by the model type or by the export's meta;
 - weights are reference torch checkpoints (HF-layout ViT, torchvision-
-  layout ResNet; ``.pth``/``.pt``/``.bin``/``.safetensors``) or the port's
+  layout ResNet, the reference's ResMoE and TreeViT of HF ViTs, whose
+  member count the model is rebuilt to; ``.pth``/``.pt``/``.bin``/
+  ``.safetensors``) or the port's
   serving export (a directory of ``params.safetensors`` and
   ``serving_meta.json``, written by the training CLIs' ``--transform``);
   the JAX package's Orbax exports are not loadable. Without ``--weights``
@@ -37,10 +39,11 @@ from torch import nn
 from ..config import FILTERED_DATA_DIR
 from ..data.folder import IMG_EXTENSIONS, get_class_to_idx
 from ..device import resolve_device
-from ..models import EXPORT_CONFIGS, create_model
+from ..models import EXPORT_CONFIGS, config_from_dict, create_model, input_size
 from ..ops.augment import normalize, resize
 from ..train.checkpoint import SERVING_META, SERVING_PARAMS, load_params
-from ..utils.convert import load_weights
+from ..utils.convert import (convert_checkpoint, member_overrides,
+                             read_checkpoint)
 from ..utils.mean_std import get_mean_std
 
 # Default checkpoint registry (serving exports), the JAX package's
@@ -67,9 +70,10 @@ BUCKETS = (1, 8, 64)
 class Predictor:
     """Frozen-weights inference with padded batch buckets.
 
-    ``model`` (a ViT or a ResNet, any module mapping NHWC images to logits)
-    is moved to ``device`` once, as it is (its compute dtype was fixed when
-    it was built), in eval mode."""
+    ``model`` (any module mapping NHWC images to logits, or to a tuple whose
+    first entry is the logits, as ResMoE and TreeViT return) is moved to
+    ``device`` once, as it is (its compute dtype was fixed when it was
+    built), in eval mode."""
 
     model: nn.Module
     class_to_idx: dict[str, int]
@@ -92,7 +96,9 @@ class Predictor:
         if tuple(imgs.shape[1:3]) != tuple(self.image_size):
             imgs = resize(imgs, self.image_size)
         imgs = normalize(imgs, self._mean, self._std)
-        probs = torch.softmax(self.model(imgs).float(), dim=-1)
+        outputs = self.model(imgs)
+        logits = outputs[0] if isinstance(outputs, tuple) else outputs
+        probs = torch.softmax(logits.float(), dim=-1)
         conf, pred = probs.max(dim=-1)
         return torch.stack([pred.float(), conf])
 
@@ -151,8 +157,9 @@ def init(args=None, modelt=None, weights=None,
     """Build a Predictor: class map + weights + normalisation statistics.
 
     ``weights`` is a reference torch checkpoint of the model type's family
-    (served at its config's image size, ``get_image_size`` of the type: 224
-    for a ViT, 256 for a ResNet, with the dataset's mean and std), or a
+    (served at its config's image size: 224 for a ViT and the mixtures'
+    ViT-B members, 256 for a ResNet, with the dataset's mean and std; a
+    ResMoE or TreeViT is built with the checkpoint's member count), or a
     serving export directory: there, as in the JAX package's ``init``, the
     model's config, the class map and the mean and std come from
     ``serving_meta.json`` and the parameters from ``params.safetensors``.
@@ -189,9 +196,11 @@ def init(args=None, modelt=None, weights=None,
             f"{SERVING_PARAMS})")
 
     class_to_idx = get_class_to_idx(data_dir)
-    model = create_model(mt, num_classes=len(class_to_idx), device=device)
-    model.load_state_dict(load_weights(weights, model.cfg))
-    image_size = (model.cfg.image_size, model.cfg.image_size)
+    state_dict = read_checkpoint(weights)
+    model = create_model(mt, num_classes=len(class_to_idx), device=device,
+                         **member_overrides(state_dict, mt))
+    model.load_state_dict(convert_checkpoint(state_dict, model.cfg))
+    image_size = input_size(model)
     mean, std = get_mean_std(data_dir, image_size)
     return Predictor(model=model, class_to_idx=class_to_idx,
                      image_size=image_size, mean=mean, std=std, device=device)
@@ -200,8 +209,9 @@ def init(args=None, modelt=None, weights=None,
 def _init_export(export_dir: str, data_dir: str,
                  device: torch.device) -> Predictor:
     """A Predictor on a serving export directory (``--transform``): the
-    model's config (``vit_config`` or ``resnet_config``), the mean and std
-    and (when the export has it) the class map from its meta."""
+    model's config (``vit_config``, ``resnet_config``, ``moe_config`` or
+    ``treevit_config``), the mean and std and (when the export has it) the
+    class map from its meta."""
     missing = [name for name in (SERVING_META, SERVING_PARAMS)
                if not os.path.exists(os.path.join(export_dir, name))]
     if missing:
@@ -219,12 +229,12 @@ def _init_export(export_dir: str, data_dir: str,
         raise ValueError(f"{export_dir}/{SERVING_META} names no model config "
                          f"({' or '.join(EXPORT_CONFIGS)})")
     family, config = EXPORT_CONFIGS[key]
-    model = family(config(**meta[key]), device=device)
+    model = family(config_from_dict(config, meta[key]), device=device)
     model.load_state_dict(load_params(os.path.join(export_dir,
                                                    SERVING_PARAMS)))
-    size = model.cfg.image_size
     return Predictor(model=model, class_to_idx=class_to_idx,
-                     image_size=(size, size), mean=np.asarray(meta["mean"]),
+                     image_size=input_size(model),
+                     mean=np.asarray(meta["mean"]),
                      std=np.asarray(meta["std"]), device=device)
 
 

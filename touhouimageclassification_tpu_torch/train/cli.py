@@ -92,8 +92,8 @@ def export_for_serving(cfg: TrainConfig, trainer: Trainer, out_path: str,
     """--transform: training checkpoint -> ``<out_path>/params.safetensors``
     (the model's state dict: parameters, and a ResNet's BatchNorm
     statistics) and ``serving_meta.json`` (model type, epoch, the
-    training-time normalisation, the model's config under ``vit_config``
-    or ``resnet_config``, and the class map), from
+    training-time normalisation, the model's config under its family's
+    key of ``models.EXPORT_CONFIGS``, and the class map), from
     the best epoch by the monitored metric, or the latest, unless ``epoch``
     is given. The port's serve loads the directory."""
     ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id)

@@ -8,9 +8,9 @@ As in the JAX package:
 
 - per-step randomness is keyed by ``(cfg.seed, state.step)``, like
   ``fold_in(base_key, step)``: a ``numpy`` generator seeded from the pair
-  draws the mixup scalars and seeds the augmentation's ``torch.Generator``
-  (and, for models with dropout, the device's default generator for the
-  forward);
+  draws the mixup scalars and seeds the augmentation's ``torch.Generator``,
+  the task's forward generator (ResMoE's gate noise, JAX's ``k_gate``) and,
+  for models with dropout, the device's default generator for the forward;
 - the NaN guard: when the loss or the gradient norm is not finite the
   optimizer update is skipped, parameters, optimizer state and the model's
   floating buffers (a ResNet's BatchNorm running statistics, which the
@@ -57,7 +57,7 @@ from torch import nn
 
 from ..config import TrainConfig, get_image_size
 from ..device import resolve_device
-from ..models import create_model
+from ..models import create_model, member_vit_config
 from ..ops.augment import build_augment_fn, build_eval_fn
 from ..ops.mixup import cutmix_or_mixup
 from ..utils.logging import get_logger
@@ -100,10 +100,12 @@ class TrainState:
 
 class ClassificationTask:
     """Default task: the model outputs logits; CE on (possibly soft) targets.
-    Tasks own the forward, the loss and the logits extraction for eval."""
+    Tasks own the forward, the loss and the logits extraction for eval.
+    ``generator`` (a device ``torch.Generator`` seeded per train step) is
+    for a task whose model draws noise in training."""
 
     def forward(self, model: nn.Module, images: torch.Tensor, batch: dict,
-                train: bool) -> torch.Tensor:
+                train: bool, generator: torch.Generator | None = None):
         model.train(train)
         return model(images)
 
@@ -122,9 +124,10 @@ class Trainer:
 
     ``model`` defaults to ``create_model(cfg.model_type)`` with f32
     parameters, ``cfg.compute_dtype`` compute and the initialisation drawn
-    from ``cfg.seed``; the image size is its config's ``image_size`` (else
-    ``get_image_size(cfg.model_type)``), and dropout is keyed per step only
-    where its config has a nonzero dropout rate. ``init_params`` is a state
+    from ``cfg.seed``; the image size is its config's ``image_size`` (a
+    mixture's: its members'; else ``get_image_size(cfg.model_type)``), and
+    dropout is keyed per step only where that config has a nonzero dropout
+    rate. ``init_params`` is a state
     dict loaded into the model by :meth:`init_state` (for example from
     ``utils.convert.from_jax_params`` or ``load_vit_weights``); without it
     the model keeps the weights it has. ``param_filter`` maps a parameter's
@@ -145,7 +148,9 @@ class Trainer:
         self.model = model.to(self.device)
         self.task = task or ClassificationTask()
         model_cfg = self.model.cfg
-        size = getattr(model_cfg, "image_size", None)
+        # ResMoE and TreeViT carry their members' ViT config inside theirs
+        inner = member_vit_config(model_cfg) or model_cfg
+        size = getattr(inner, "image_size", None)
         self.out_size = ((size, size) if isinstance(size, int)
                          else get_image_size(cfg.model_type))
         self.num_classes = model_cfg.num_classes
@@ -153,7 +158,7 @@ class Trainer:
         self.eval_transform = build_eval_fn(cfg.augment, self.out_size)
         self._init_params = init_params
         self.param_filter = param_filter
-        self._dropout = any(getattr(model_cfg, name, 0) > 0 for name in (
+        self._dropout = any(getattr(inner, name, 0) > 0 for name in (
             "dropout_rate", "attention_dropout_rate"))
         self.state: TrainState | None = None
         self._metrics_path = os.path.join(cfg.log_dir, cfg.train_id,
@@ -211,7 +216,8 @@ class Trainer:
         return staged
 
     def _inputs(self, state: TrainState, batch: dict[str, torch.Tensor]):
-        """Augmented, normalised, mixed images and soft labels for a step."""
+        """Augmented, normalised, mixed images and soft labels for a step,
+        and the seeds of its dropout and of the task's forward generator."""
         cfg = self.cfg
         rng = np.random.default_rng([cfg.seed, state.step])
         gen = torch.Generator(device=self.device)
@@ -223,13 +229,15 @@ class Trainer:
             images, labels = cutmix_or_mixup(rng, images, labels,
                                              cfg.mix.mixup_alpha,
                                              cfg.mix.cutmix_alpha)
-        return images, labels, int(rng.integers(2 ** 63))
+        return (images, labels, int(rng.integers(2 ** 63)),
+                int(rng.integers(2 ** 63)))
 
     def train_step(self, state: TrainState,
                    batch: dict[str, torch.Tensor]) -> dict[str, float]:
         """One NaN-guarded step on a staged batch; returns the fetched
         metrics (``loss``, ``grad_norm``, the task's scalars)."""
-        images, labels, drop_seed = self._inputs(state, batch)
+        images, labels, drop_seed, task_seed = self._inputs(state, batch)
+        task_gen = torch.Generator(device=self.device).manual_seed(task_seed)
         model = state.model
         model.zero_grad(set_to_none=True)
         buffers = [b for b in model.buffers() if b.is_floating_point()]
@@ -239,7 +247,7 @@ class Trainer:
         with torch.random.fork_rng(devices=devices, enabled=self._dropout):
             if self._dropout:
                 torch.manual_seed(drop_seed)
-            outputs = self.task.forward(model, images, batch, True)
+            outputs = self.task.forward(model, images, batch, True, task_gen)
             loss, aux = self.task.loss(outputs, labels)
             loss.backward()
         grad_norm = global_norm([p.grad for p in model.parameters()

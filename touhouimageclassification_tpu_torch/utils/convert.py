@@ -1,4 +1,4 @@
-"""Weight conversion for the port's ViT and ResNet.
+"""Weight conversion for the port's ViT, ResNet, ResMoE and TreeViT.
 
 - :func:`from_jax_params` maps a parameter tree in the JAX package's layout
   (numpy arrays, Dense kernels laid out (in, out), conv kernels HWIO) onto
@@ -12,13 +12,24 @@
   reference or torchvision ResNet through :func:`torch_resnet_to_flax`
   (which drops torchvision's ``num_batches_tracked``). A classifier whose
   size disagrees with the class count is drawn afresh there, as the JAX
-  package draws it (``ignore_mismatched_sizes``). :func:`load_weights`
-  picks the loader by the model's config.
+  package draws it (``ignore_mismatched_sizes``). :func:`read_checkpoint`
+  + :func:`convert_checkpoint` do the same for any family, picked by the
+  model's config.
+- ResMoE and TreeViT: :func:`from_jax_params` takes the JAX package's tree
+  (``{'gate': {'vit': ...}, 'experts': stacked}`` or ``{'root': ...,
+  'sons': stacked}``, the members stacked on a leading axis) to the state
+  dict of ``gate.vit.*`` + ``experts.{i}.*`` or ``root.*`` + ``sons.{i}.*``
+  through the ViT mapping. A reference checkpoint (``TIC/ResMoE/model.py``,
+  ``TIC/TreeViT/model.py``: HF ViTs under those names) goes through
+  :func:`torch_moe_to_flax` / :func:`torch_treevit_to_flax`;
+  :func:`member_overrides` reads its member count, which the config does
+  not hold, so that a loader builds the model to match.
 
-``_strip_prefixes``, ``torch_vit_to_flax``, ``torch_resnet_to_flax`` and
-``_normalize_ckpt`` are the port's copies of the JAX package's
+``_strip_prefixes``, ``torch_vit_to_flax``, ``torch_resnet_to_flax``,
+``_normalize_ckpt``, ``member_overrides``, ``torch_moe_to_flax`` and
+``torch_treevit_to_flax`` are the port's copies of the JAX package's
 (``utils/convert.py``), with the same names and results
-(``tests/test_torch_copies.py``).
+(``tests/test_torch_copies.py``, ``tests/test_torch_moe.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..config import ResNetConfig, ViTConfig
+import dataclasses
+
+from ..config import MoEConfig, ResNetConfig, TreeViTConfig, ViTConfig
 from .pretrained import _load_state_dict
 
 
@@ -195,6 +208,87 @@ def torch_resnet_to_flax(
     return params, {"batch_stats": stats}
 
 
+def _subdict(sd: Mapping[str, Any], prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _stack_trees(trees: list) -> dict:
+    """Stack per-member parameter trees leaf-wise onto a leading axis (the
+    JAX package's ``nn.vmap`` layout of the experts and sons)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _index_tree(tree, i: int):
+    """Member ``i`` of a tree stacked on a leading axis."""
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _member_ids(sd: Mapping[str, Any], name: str) -> list[int]:
+    ids = sorted(
+        {int(m.group(1)) for k in sd
+         if (m := re.match(rf"{name}\.(\d+)\.", k))}
+    )
+    if not ids or ids != list(range(len(ids))):
+        raise ValueError(
+            f"checkpoint has no contiguous '{name}.N.*' keys "
+            f"(found indices {ids}) — not a reference "
+            f"{'MoEClassifier' if name == 'experts' else 'TreeModule'} "
+            "state dict?"
+        )
+    return ids
+
+
+def member_overrides(state_dict: Mapping[str, Any], model_type: str) -> dict:
+    """Config overrides inferred from a reference MoE/TreeViT state dict —
+    the expert/son count lives in the checkpoint, not the config, so loaders
+    rebuild the model to match. ``{}`` for other model types."""
+    mt = model_type.lower().replace("_", "-")
+    if mt in ("vit-moe", "resmoe"):
+        return {"num_experts": len(_member_ids(_strip_prefixes(state_dict),
+                                               "experts"))}
+    if mt in ("tree-vit", "treevit"):
+        return {"num_categories": len(_member_ids(_strip_prefixes(state_dict),
+                                                  "sons"))}
+    return {}
+
+
+def torch_moe_to_flax(state_dict: Mapping[str, Any], num_classes: int) -> dict:
+    """Reference ``MoEClassifier`` state dict (``experts.{i}.*`` HF ViTs,
+    ``gate.vit.*`` the gate's HF ViT scoring the experts) -> the JAX
+    package's ResMoE tree (gate ViT under ``gate/vit``, experts stacked on a
+    leading axis); a mismatched expert head is drawn with seed ``i``."""
+    sd = _strip_prefixes(dict(state_dict))
+    expert_ids = _member_ids(sd, "experts")
+    gate = torch_vit_to_flax(_subdict(sd, "gate.vit."),
+                             num_classes=len(expert_ids))
+    experts = [
+        torch_vit_to_flax(_subdict(sd, f"experts.{i}."), num_classes,
+                          head_init_seed=i)
+        for i in expert_ids
+    ]
+    return {"gate": {"vit": gate}, "experts": _stack_trees(experts)}
+
+
+def torch_treevit_to_flax(state_dict: Mapping[str, Any],
+                          num_classes: int) -> dict:
+    """Reference ``TreeModule`` state dict (``root.*`` HF ViT scoring
+    categories, ``sons.{i}.*`` HF ViTs scoring classes) -> the JAX package's
+    TreeViT tree (root ViT + sons stacked on a leading axis)."""
+    sd = _strip_prefixes(dict(state_dict))
+    son_ids = _member_ids(sd, "sons")
+    root = torch_vit_to_flax(_subdict(sd, "root."), num_classes=len(son_ids))
+    sons = [
+        torch_vit_to_flax(_subdict(sd, f"sons.{i}."), num_classes,
+                          head_init_seed=i)
+        for i in son_ids
+    ]
+    return {"root": root, "sons": _stack_trees(sons)}
+
+
 def _normalize_ckpt(path):
     """Reference ``.pth`` path (or an already-loaded object) -> bare state
     dict. Tolerates the tuple checkpoints ``(model_sd, optim[, sched])`` and
@@ -224,17 +318,20 @@ def _norm(tree: Mapping[str, Any]) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(tree["scale"]), np.asarray(tree["bias"])
 
 
-def from_jax_params(params, cfg: ViTConfig | ResNetConfig
-                    ) -> dict[str, torch.Tensor]:
-    """JAX ``ViT`` or ``ResNet`` variables -> state dict of the port's
-    model of ``cfg``.
+def from_jax_params(params, cfg: ViTConfig | ResNetConfig | MoEConfig
+                    | TreeViTConfig) -> dict[str, torch.Tensor]:
+    """JAX ``ViT``, ``ResNet``, ``MoEClassifier`` or ``TreeViT`` variables
+    -> state dict of the port's model of ``cfg``.
 
     A ViT's tree is taken with or without its ``{"params": ...}`` wrapper;
     raises if its depth disagrees with ``cfg.num_layers``. A ResNet's is
     ``(params, {"batch_stats": ...})`` or ``{"params": ..., "batch_stats":
-    ...}`` (see :func:`_resnet_from_jax`)."""
+    ...}`` (see :func:`_resnet_from_jax`). A mixture's members go through
+    the ViT mapping (see :func:`_members_from_jax`)."""
     if isinstance(cfg, ResNetConfig):
         return _resnet_from_jax(params, cfg)
+    if isinstance(cfg, (MoEConfig, TreeViTConfig)):
+        return _members_from_jax(params, cfg)
     params = params.get("params", params)
     depth = sum(k.startswith("layer_") for k in params)
     if depth != cfg.num_layers:
@@ -260,6 +357,36 @@ def from_jax_params(params, cfg: ViTConfig | ResNetConfig
     for name, (weight, bias) in pairs.items():
         sd[f"{name}.weight"], sd[f"{name}.bias"] = weight, bias
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+def _members_from_jax(params, cfg: MoEConfig | TreeViTConfig
+                      ) -> dict[str, torch.Tensor]:
+    """A ResMoE (``gate/vit`` + stacked ``experts``) or TreeViT (``root`` +
+    stacked ``sons``) tree -> the state dict of ``gate.vit.*`` +
+    ``experts.{i}.*`` or ``root.*`` + ``sons.{i}.*``. Raises if the stacked
+    axis disagrees with the config's member count."""
+    from ..models import member_vit_config
+
+    params = params.get("params", params)
+    member = member_vit_config(cfg)
+    if isinstance(cfg, MoEConfig):
+        first = ("gate.vit", params["gate"]["vit"], cfg.num_experts)
+        stacked, name, count = params["experts"], "experts", cfg.num_experts
+    else:
+        first = ("root", params["root"], cfg.num_categories)
+        stacked, name, count = params["sons"], "sons", cfg.num_categories
+    found = np.asarray(stacked["cls_token"]).shape[0]
+    if found != count:
+        raise ValueError(f"parameter tree has {found} {name}, the config "
+                         f"{count}")
+    parts = [first] + [(f"{name}.{i}", _index_tree(stacked, i),
+                        cfg.num_classes) for i in range(count)]
+    sd = {}
+    for prefix, tree, classes in parts:
+        vit_cfg = dataclasses.replace(member, num_classes=classes)
+        sd.update({f"{prefix}.{k}": v
+                   for k, v in from_jax_params(tree, vit_cfg).items()})
+    return sd
 
 
 def _resnet_from_jax(variables, cfg: ResNetConfig) -> dict[str, torch.Tensor]:
@@ -311,17 +438,34 @@ def _resnet_from_jax(variables, cfg: ResNetConfig) -> dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def _read_ckpt(path: str):
+def read_checkpoint(path: str) -> Mapping[str, Any]:
+    """The state dict of a reference ``.pth``/``.pt``/``.bin`` or a
+    ``.safetensors`` file."""
     if path.endswith(".safetensors"):
         return _load_state_dict(path)
     return _normalize_ckpt(path)
 
 
+def convert_checkpoint(state_dict: Mapping[str, Any], cfg
+                       ) -> dict[str, torch.Tensor]:
+    """A reference or HF/torchvision state dict as a state dict of the
+    port's model of ``cfg`` (ViT, ResNet, ResMoE or TreeViT; a mixture's
+    member count must be the checkpoint's, see :func:`member_overrides`)."""
+    if isinstance(cfg, ResNetConfig):
+        tree = torch_resnet_to_flax(state_dict, cfg.num_classes)
+    elif isinstance(cfg, MoEConfig):
+        tree = torch_moe_to_flax(state_dict, cfg.num_classes)
+    elif isinstance(cfg, TreeViTConfig):
+        tree = torch_treevit_to_flax(state_dict, cfg.num_classes)
+    else:
+        tree = torch_vit_to_flax(state_dict, cfg.num_classes)
+    return from_jax_params(tree, cfg)
+
+
 def load_vit_weights(path: str, cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """HF-layout ViT checkpoint at ``path`` -> state dict of ``ViT(cfg)``,
     with a fresh head when the checkpoint's has another class count."""
-    return from_jax_params(torch_vit_to_flax(_read_ckpt(path),
-                                             cfg.num_classes), cfg)
+    return convert_checkpoint(read_checkpoint(path), cfg)
 
 
 def load_resnet_weights(path: str, cfg: ResNetConfig
@@ -330,14 +474,4 @@ def load_resnet_weights(path: str, cfg: ResNetConfig
     of ``ResNet(cfg)``, with the head drawn as the JAX package draws it
     (``np.random.default_rng(0)``, normal(0, 0.02), zero bias) when ``fc``
     has another class count."""
-    return from_jax_params(torch_resnet_to_flax(_read_ckpt(path),
-                                                cfg.num_classes), cfg)
-
-
-def load_weights(path: str, cfg: ViTConfig | ResNetConfig
-                 ) -> dict[str, torch.Tensor]:
-    """The checkpoint at ``path`` as a state dict of the model of ``cfg``
-    (:func:`load_resnet_weights` or :func:`load_vit_weights`)."""
-    if isinstance(cfg, ResNetConfig):
-        return load_resnet_weights(path, cfg)
-    return load_vit_weights(path, cfg)
+    return convert_checkpoint(read_checkpoint(path), cfg)
