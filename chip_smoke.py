@@ -116,6 +116,20 @@ fatal on failure:
     K2 alone at ViT-B's width (N 197, C 768, 12 heads, bf16) and B 2, 4 and
     64 against their plain versions, timed around one launch and as device
     time beside SDPA (and its autograd backward) and the bytes bound.
+16. multi-GPU on the one card: (a) ``train.ntrain`` (nvit, ViT-L, batch
+    8, one epoch from the seeded scratch init) without distribution and as
+    one NCCL rank (``--coordinator 127.0.0.1:<free port> --num-processes 1
+    --process-id 0``): every step's loss bit-equal, K1/K2 24 a step; (b) a
+    probe of two NCCL ranks on the card (NCCL refuses a second rank on a
+    device), then two ranks over gloo on CUDA tensors (children of this
+    script, ``--rank``): ViT-L nvit steps at 2 x 8 against one process at
+    16 with the augmentation and CutMix/MixUp on (loss, grad norm,
+    parameters; the gradient all-reduce timed apart), and ResMoE at the
+    preset's width with 4 experts a rank (logits and one step against one
+    process; a fit that SIGTERM to rank 1 alone stops after step 3 on
+    both, resumed to the end of the epoch; the expert-sharded checkpoint
+    restored in one process and served). Per-rank K1/K2 counts, step times
+    and peak memory are printed and the counts join the kernels line.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -2509,6 +2523,523 @@ def phase_mixtures(torch, attn, serve, create_model, Trainer, data: str,
     return numbers, launches, phase_vit_b_kernels(torch, attn)
 
 
+# Phase 16, multi-GPU on the one card. (a) one NCCL rank through the ntrain
+# CLI's multi-process flags; (b) two ranks on the card over gloo (NCCL takes
+# one rank a device), which all-reduces CUDA tensors: a ViT-L data-parallel
+# step against one process on the global batch, and ResMoE with its experts
+# split over the two ranks (4 ViT-B experts a rank, the gate replicated).
+EP_K1 = (MIX_MEMBERS // 2 + 1) * VIT_B_LAYERS   # a rank's 4 experts + gate
+DP_K1 = 24                                      # ViT-L's layers, a step
+DP_STEPS = 2
+DP_BATCH = 16
+# Two ranks of 8 against one process of 16, bf16 compute: the ranks' GEMMs
+# run at half the rows, so cuBLAS may sum in another order and the bf16
+# roundings of 24 layers reach the loss: 1e-2 relative for the loss, 5e-2
+# for the gradient norm. AdamW moves a parameter by at most ~lr a step
+# whatever its gradient, so two runs whose gradients differ stay within
+# 2 x lr a step of each other (a gradient near zero may change sign), plus
+# DP_PARAM_ROUNDING for the f32 rounding of the parameters themselves.
+DP_LOSS_RTOL = 1e-2
+DP_NORM_RTOL = 5e-2
+DP_PARAM_ROUNDING = 1e-6
+# Expert parallelism runs each expert at the same batch as one process and
+# adds its logits to zeros: the logits are expected equal; the gradient
+# norm adds the experts' squares in another order.
+EP_LOGIT_ATOL = 1e-3
+EP_NORM_RTOL = 1e-4
+EP_FIT_STEPS = 6
+EP_SIGTERM_AFTER = 3
+
+NCCL_PROBE = (
+    "import os, sys, torch, torch.distributed as d; "
+    "d.init_process_group('nccl', init_method='file://' + sys.argv[3], "
+    "world_size=2, rank=int(sys.argv[1])); torch.cuda.set_device(0); "
+    "t = torch.ones(1, device='cuda:0'); d.all_reduce(t); "
+    "torch.cuda.synchronize(); print('all_reduce', t.item())")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                 "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS",
+                 "COORDINATOR_ADDRESS"):
+        env.pop(name, None)
+    return env
+
+
+def run_ranks(argv_of, world: int, timeout: float) -> list | None:
+    """Start ``world`` processes (``argv_of(rank)``) and wait for all;
+    returns (rc, stdout, stderr) each, or None when they outlast
+    ``timeout`` (then they are killed). Every process is ended before this
+    returns."""
+    procs = [subprocess.Popen(argv_of(r), cwd=ROOT, env=child_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    out = []
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            return None
+        out.append((p.returncode, o, e))
+    return out
+
+
+def spawn_ranks(mode: str, world: int, work: str, data: str,
+                timeout: float = 600) -> list[dict]:
+    """This script's ``--rank`` entry on ``world`` processes, gloo on
+    cuda:0; each rank's result is ``<work>/<mode>_rank<r>.json``."""
+    results = run_ranks(lambda r: [sys.executable, os.path.abspath(__file__),
+                                   "--rank", mode, str(r), str(world), work,
+                                   data], world, timeout)
+    if results is None:
+        raise AssertionError(f"{mode} ranks timed out after {timeout} s")
+    for r, (rc, o, e) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"{mode} rank {r} exited {rc}:\n{o[-3000:]}"
+                                 f"\n{e[-6000:]}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(work, f"{mode}_rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def nccl_duplicate_probe(work: str) -> str:
+    """Two NCCL ranks on the one card: NCCL refuses them ("Duplicate GPU
+    detected"). Returns what the probe printed."""
+    rdzv = os.path.join(work, "nccl_probe_rdzv")
+    results = run_ranks(lambda r: [sys.executable, "-c", NCCL_PROBE, str(r),
+                                   "2", rdzv], 2, 120)
+    if results is None:
+        print("NCCL probe, two ranks on cuda:0: no answer in 120 s (killed)")
+        return "hung"
+    text = " ".join(o + e for _, o, e in results)
+    verdict = ("refused" if "Duplicate GPU" in text else
+               "accepted" if all(rc == 0 for rc, _, _ in results) else
+               "failed")
+    print(f"NCCL probe, two ranks on cuda:0: exit codes "
+          f"{[rc for rc, _, _ in results]}, {verdict}"
+          f"{' (Duplicate GPU detected)' if verdict == 'refused' else ''}")
+    if verdict == "failed":
+        print("NCCL probe output:", text[-1500:])
+    return verdict
+
+
+def dp_batches(n: int, b: int) -> list[dict]:
+    rng = np.random.default_rng(SEED + 160)
+    return [{"image": rng.integers(0, 256, (b, 256, 256, 3), dtype=np.uint8),
+             "label": rng.integers(0, NUM_CLASSES, b).astype(np.int32),
+             "mask": np.ones(b, bool)} for _ in range(n)]
+
+
+def ep_batch(b: int = 4) -> dict:
+    rng = np.random.default_rng(SEED + 161)
+    return {"image": rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8),
+            "label": rng.integers(0, NUM_CLASSES, b).astype(np.int32),
+            "mask": np.ones(b, bool)}
+
+
+def vit_l_trainer(torch, create_model, Trainer, cfg, dev):
+    model = create_model("vit-large", num_classes=NUM_CLASSES,
+                         compute_dtype="bfloat16", param_dtype="float32",
+                         device=dev, seed=SEED)
+    trainer = Trainer(cfg, model=model, device=dev)
+    trainer.init_state(4)
+    return trainer
+
+
+def resmoe_cfg(data: str, work: str, shards: int):
+    from touhouimageclassification_tpu_torch.config import (PRESETS,
+                                                            CheckpointConfig,
+                                                            MeshConfig)
+
+    return dataclasses.replace(
+        PRESETS["resmoe"], data_dir=data, seed=SEED, max_epochs=1,
+        limit_train_batches=EP_FIT_STEPS, limit_val_batches=2,
+        mesh=MeshConfig(num_expert_shards=shards),
+        checkpoint=CheckpointConfig(directory=os.path.join(work, "ep_ckpt"),
+                                    async_save=False, monitor="val_loss",
+                                    mode="min"),
+        log_dir=os.path.join(work, "ep_log"))
+
+
+def resmoe_trainer(create_model, Trainer, cfg, dev):
+    from touhouimageclassification_tpu_torch.train.tasks import MoETask
+
+    model = create_model("resmoe", num_classes=NUM_CLASSES,
+                         param_dtype="float32", device=dev, seed=SEED)
+    trainer = Trainer(cfg, model=model, task=MoETask(model.cfg), device=dev)
+    trainer.init_state(4)
+    return trainer
+
+
+def moe_logits(torch, trainer, batch) -> "torch.Tensor":
+    from touhouimageclassification_tpu_torch.parallel import collectives
+
+    staged = trainer.stage(batch)
+    with torch.no_grad(), collectives.use_mesh(trainer.mesh):
+        images = trainer.eval_transform(staged["image"].float() / 255.0)
+        out = trainer.task.forward(trainer.state.model, images, staged, False)
+    return trainer.task.logits(out).float()
+
+
+def rank_dp(torch, attn, rank: int, world: int, work: str, data: str,
+            dev) -> dict:
+    """One rank of the ViT-L data-parallel steps: this rank's 8 rows of
+    each global batch of 16, the nvit recipe; the gradient all-reduce timed
+    apart."""
+    from touhouimageclassification_tpu_torch.models import create_model
+    from touhouimageclassification_tpu_torch.parallel import collectives
+    from touhouimageclassification_tpu_torch.train.checkpoint import \
+        save_params
+    from touhouimageclassification_tpu_torch.train.trainer import Trainer
+
+    reduce_s = []
+    average = collectives.average_gradients_
+
+    def timed_average(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(*args, **kw)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    collectives.average_gradients_ = timed_average
+    trainer = vit_l_trainer(torch, create_model, Trainer,
+                            nvit_config(data, global_batch_size=DP_BATCH),
+                            dev)
+    index, count = trainer._input_view
+    b = DP_BATCH // count
+    state = trainer.state
+    metrics, step_s = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(attn)
+    for batch in dp_batches(DP_STEPS, DP_BATCH):
+        local = {k: v[index * b:(index + 1) * b] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_step(state, trainer.stage(local)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = (attn.launches, attn.bwd_launches)
+    if rank == 0:
+        save_params(os.path.join(work, "dp_params.safetensors"),
+                    state.model.state_dict())
+    return {"view": [index, count], "metrics": metrics, "launches": launches,
+            "routes": dict(attn.route_launches), "step_s": step_s,
+            "allreduce_s": reduce_s,
+            "grad_bytes": sum(p.numel() * 4 for p in state.optimizer.params),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def rank_ep(torch, attn, rank: int, world: int, work: str, data: str,
+            dev) -> dict:
+    """One rank of ResMoE under pure expert parallelism: logits and one
+    step on a batch of 4; a fit that SIGTERM (to rank 1 only) stops after
+    step 3, saving a mid-epoch checkpoint of both ranks' experts, and its
+    resumed run to the end of the epoch; the logits after it."""
+    import signal as signal_mod
+
+    from touhouimageclassification_tpu_torch.data import (image_loader,
+                                                         random_split,
+                                                         scan_image_folder)
+    from touhouimageclassification_tpu_torch.models import create_model
+    from touhouimageclassification_tpu_torch.train.trainer import Trainer
+
+    cfg = resmoe_cfg(data, work, world)
+    trainer = resmoe_trainer(create_model, Trainer, cfg, dev)
+    batch = ep_batch()
+    logits = moe_logits(torch, trainer, batch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(attn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = trainer.train_step(trainer.state, trainer.stage(batch))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = (attn.launches, attn.bwd_launches)
+    routes = dict(attn.route_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    canvas = trainer.out_size
+    del trainer
+    torch.cuda.empty_cache()
+
+    index = scan_image_folder(data)
+    tr, va = random_split(len(index), cfg.train_split, cfg.seed)
+
+    def loaders():
+        return (image_loader(index, tr, batch_size=cfg.global_batch_size,
+                             canvas=canvas, shuffle=True, seed=cfg.seed),
+                image_loader(index, va, batch_size=cfg.global_batch_size,
+                             canvas=canvas, drop_last=False))
+
+    fits = []
+    for run in ("preempted", "resumed"):
+        trainer = resmoe_trainer(create_model, Trainer, cfg, dev)
+        if run == "preempted" and rank == 1:
+            plain = trainer.train_step
+
+            def train_step(state, b, plain=plain):
+                out = plain(state, b)
+                if state.step == EP_SIGTERM_AFTER:
+                    os.kill(os.getpid(), signal_mod.SIGTERM)
+                return out
+
+            trainer.train_step = train_step
+        history = trainer.fit(*loaders(), resume=True)
+        fits.append({"step": trainer.state.step, "history": history})
+        if run == "resumed":
+            after = moe_logits(torch, trainer, batch)
+        del trainer
+        torch.cuda.empty_cache()
+    return {"logits": logits.cpu().tolist(), "step": step,
+            "launches": launches, "routes": routes,
+            "step_s": step_s, "peak_gib": peak, "fits": fits,
+            "logits_after_fit": after.cpu().tolist()}
+
+
+def rank_main(args: list[str]) -> int:
+    """``chip_smoke.py --rank <dp|ep> <rank> <world> <work> <data>``: one
+    rank of phase 16(b), gloo over CUDA tensors on cuda:0."""
+    import torch
+
+    from touhouimageclassification_tpu_torch.ops import attention as attn
+    from touhouimageclassification_tpu_torch.parallel.dist import (
+        initialize_distributed, shutdown_distributed)
+
+    mode, rank, world, work, data = (args[0], int(args[1]), int(args[2]),
+                                     args[3], args[4])
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"file://{work}/rdzv_{mode}", world, rank,
+                           backend="gloo", device=dev, timeout=600)
+    out = {"dp": rank_dp, "ep": rank_ep}[mode](torch, attn, rank, world,
+                                               work, data, dev)
+    with open(os.path.join(work, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_distributed()
+    return 0
+
+
+def phase_nccl_rank(torch, attn, data: str, work: str, layers: int):
+    """(a) ``ntrain`` (nvit, ViT-L, batch 8, 1 epoch from the seeded scratch
+    init) without distribution, then as one NCCL rank through
+    --coordinator/--num-processes/--process-id: every step's loss equal bit
+    for bit, K1/K2 ``layers`` a step on the NCCL rank. Returns its K1/K2
+    launches."""
+    from touhouimageclassification_tpu_torch.parallel import dist
+    from touhouimageclassification_tpu_torch.train import ntrain
+    from touhouimageclassification_tpu_torch.train.trainer import Trainer
+
+    steps, val = fit_plan(nvit_config(data, max_epochs=1), data)
+    argv = ["--data-dir", data, "--max-epochs", "1", "--seed", str(SEED),
+            "--batch-size", "8", "--no-pretrained", "--no-resume",
+            "--device", "cuda"]
+    losses: dict[str, list[float]] = {}
+    plain_step = Trainer.train_step
+    for run, flags in (("local", []), ("nccl", [
+            "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+            "1", "--process-id", "0"])):
+        run_losses = losses[run] = []
+
+        def recording(self, state, batch, run_losses=run_losses):
+            m = plain_step(self, state, batch)
+            run_losses.append(m["loss"])
+            return m
+
+        Trainer.train_step = recording
+        cwd = os.getcwd()
+        run_dir = os.path.join(work, run)
+        os.makedirs(run_dir, exist_ok=True)
+        os.chdir(run_dir)
+        zero_counts(attn)
+        t0 = time.perf_counter()
+        try:
+            trainer = ntrain.main([*argv, *flags])
+        finally:
+            Trainer.train_step = plain_step
+            os.chdir(cwd)
+        secs = time.perf_counter() - t0
+        launches = (attn.launches, attn.bwd_launches)
+        backend = (torch.distributed.get_backend()
+                   if torch.distributed.is_initialized() else None)
+        print(f"phase 16(a) ntrain {run}: world {dist.world()}, backend "
+              f"{backend}, device {trainer.device}, {len(run_losses)} steps, "
+              f"{secs:.2f} s, K1/K2 launches {launches}")
+        del trainer
+        dist.shutdown_distributed()
+        torch.cuda.empty_cache()
+        if run == "nccl":
+            if backend != "nccl":
+                raise AssertionError(f"16(a): backend {backend}")
+            read_counts(attn, "phase 16(a) NCCL rank ntrain epoch",
+                        (layers * (steps + val), layers * steps))
+    if losses["nccl"] != losses["local"] or len(losses["nccl"]) != steps:
+        raise AssertionError(f"16(a): losses differ: {losses}")
+    print(f"phase 16(a): {steps} step losses bit-equal with and without one "
+          f"NCCL rank, first {losses['nccl'][0]!r}, last "
+          f"{losses['nccl'][-1]!r}")
+    return launches
+
+
+def phase_dp(torch, attn, create_model, Trainer, data: str, work: str,
+             dev) -> dict:
+    """(b) ViT-L nvit, 2 ranks x 8 on the card against one process of 16:
+    per-step loss and grad norm, and every parameter after the steps."""
+    from safetensors.torch import load_file
+
+    outs = spawn_ranks("dp", 2, work, data)
+    for r, o in enumerate(outs):
+        if o["launches"] != [DP_K1 * DP_STEPS] * 2 or \
+                o["routes"] != {"mma": 2 * DP_K1 * DP_STEPS, "simt": 0}:
+            raise AssertionError(f"dp rank {r}: K1/K2 {o['launches']} "
+                                 f"routes {o['routes']}")
+        print(f"phase 16(b) ViT-L DP rank {r} of 2 (gloo, batch "
+              f"{DP_BATCH // 2} of {DP_BATCH}): K1/K2 launches "
+              f"{o['launches']}, step s {o['step_s']}, gradient all-reduce "
+              f"s {o['allreduce_s']} ({o['grad_bytes'] / 2 ** 30:.2f} GiB "
+              f"f32), peak memory {o['peak_gib']:.2f} GiB")
+    if outs[0]["metrics"] != outs[1]["metrics"]:
+        raise AssertionError("dp: the ranks fetched different metrics")
+    trainer = vit_l_trainer(torch, create_model, Trainer,
+                            nvit_config(data, global_batch_size=DP_BATCH),
+                            dev)
+    one, one_s = [], []
+    for batch in dp_batches(DP_STEPS, DP_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.append(trainer.train_step(trainer.state, trainer.stage(batch)))
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+    ranks = load_file(os.path.join(work, "dp_params.safetensors"))
+    lr = trainer.cfg.optimizer.learning_rate
+    diffs = [(ranks[k].to(dev) - v).abs()
+             for k, v in trainer.state.model.state_dict().items()]
+    dmax = max(d.max().item() for d in diffs)
+    moved = sum(int((d > DP_PARAM_ROUNDING).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    del diffs
+    del trainer
+    torch.cuda.empty_cache()
+    for s, (a, b) in enumerate(zip(outs[0]["metrics"], one), start=1):
+        rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+        print(f"phase 16(b) DP step {s}: 2 ranks {a}, one process {b}, "
+              f"relative difference {rel}")
+        if rel["loss"] > DP_LOSS_RTOL or rel["grad_norm"] > DP_NORM_RTOL:
+            raise AssertionError(f"dp step {s}: {rel}")
+    bound = 2 * lr * DP_STEPS + DP_PARAM_ROUNDING
+    print(f"phase 16(b) DP parameters after {DP_STEPS} steps: max |diff| "
+          f"{dmax:.3e} (bound 2 x lr x steps + {DP_PARAM_ROUNDING:g} = "
+          f"{bound:.3e}), share of elements apart by more than "
+          f"{DP_PARAM_ROUNDING:g}: {moved:.3e}; one process at {DP_BATCH}: "
+          f"step s {one_s}")
+    if dmax > bound:
+        raise AssertionError(f"dp parameters {dmax}")
+    share = [a / s for a, s in zip(outs[0]["allreduce_s"],
+                                   outs[0]["step_s"])]
+    print(f"phase 16(b) DP gradient all-reduce share of a rank's step: "
+          f"{share}")
+    return {f"dp_rank{r}": o["launches"] for r, o in enumerate(outs)}
+
+
+def phase_ep(torch, attn, serve, create_model, Trainer, data: str,
+             work: str, dev) -> dict:
+    """(b) ResMoE (8 ViT-B experts + gate, 120 classes, the resmoe preset)
+    with 4 experts a rank on 2 ranks: logits and one step against one
+    process; the SIGTERM to rank 1 alone stops both ranks at step 3, and
+    the resumed run ends the epoch; one process restores the
+    expert-sharded checkpoint, equals the ranks' logits and serves."""
+    from touhouimageclassification_tpu_torch.train.checkpoint import \
+        CheckpointManager
+
+    outs = spawn_ranks("ep", 2, work, data)
+    for r, o in enumerate(outs):
+        if o["launches"] != [EP_K1, EP_K1] or \
+                o["routes"] != {"mma": 2 * EP_K1, "simt": 0}:
+            raise AssertionError(f"ep rank {r}: K1/K2 {o['launches']} "
+                                 f"routes {o['routes']}")
+        print(f"phase 16(b) ResMoE EP rank {r} of 2 (4 experts + gate): "
+              f"K1/K2 launches {o['launches']} for logits + one step, step "
+              f"{o['step_s']:.3f} s, peak memory {o['peak_gib']:.2f} GiB")
+        steps = [f["step"] for f in o["fits"]]
+        if steps != [EP_SIGTERM_AFTER, EP_FIT_STEPS] or \
+                o["fits"][0]["history"] or len(o["fits"][1]["history"]) != 1:
+            raise AssertionError(f"ep rank {r} fits {o['fits']}")
+    print(f"phase 16(b) SIGTERM to rank 1 only: both ranks stopped at step "
+          f"{EP_SIGTERM_AFTER} and resumed to step {EP_FIT_STEPS}; record "
+          f"{json.dumps(outs[0]['fits'][1]['history'][0])}")
+    cfg = resmoe_cfg(data, work, 1)
+    saved = os.path.join(cfg.checkpoint.directory, cfg.train_id, "1")
+    files = sorted(os.listdir(saved))
+    if "state.expert1.safetensors" not in files:
+        raise AssertionError(f"ep checkpoint files {files}")
+    trainer = resmoe_trainer(create_model, Trainer, cfg, dev)
+    batch = ep_batch()
+    logits = moe_logits(torch, trainer, batch)
+    step = trainer.train_step(trainer.state, trainer.stage(batch))
+    dlogit = (logits.cpu() - torch.tensor(outs[0]["logits"])).abs().max()
+    rel = abs(step["grad_norm"] - outs[0]["step"]["grad_norm"]) / \
+        step["grad_norm"]
+    print(f"phase 16(b) EP vs one process: logits max |diff| {dlogit:.3e}, "
+          f"loss {outs[0]['step']['loss']!r} vs {step['loss']!r}, grad norm "
+          f"relative difference {rel:.3e}")
+    if dlogit > EP_LOGIT_ATOL or rel > EP_NORM_RTOL or abs(
+            step["loss"] - outs[0]["step"]["loss"]) > 1e-5 * abs(step["loss"]):
+        raise AssertionError("ep vs one process")
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = resmoe_trainer(create_model, Trainer, cfg, dev)
+    CheckpointManager(cfg.checkpoint, cfg.train_id).restore(trainer.state)
+    restored = moe_logits(torch, trainer, batch)
+    drest = (restored.cpu() - torch.tensor(
+        outs[0]["logits_after_fit"])).abs().max()
+    pred = serve.Predictor(model=trainer.state.model,
+                           class_to_idx={str(i): i for i in
+                                         range(NUM_CLASSES)},
+                           image_size=trainer.out_size,
+                           mean=np.asarray(trainer.cfg.augment.mean),
+                           std=np.asarray(trainer.cfg.augment.std),
+                           device=dev)
+    served, _ = pred.predict_array(batch["image"])
+    print(f"phase 16(b) expert-sharded checkpoint {files} restored in one "
+          f"process at step {trainer.state.step}: logits max |diff| to the "
+          f"ranks' {drest:.3e}; served classes {served.tolist()}")
+    if trainer.state.step != EP_FIT_STEPS or drest > EP_LOGIT_ATOL or \
+            served.tolist() != restored.argmax(-1).cpu().tolist():
+        raise AssertionError("ep restore and serve")
+    del trainer, pred
+    torch.cuda.empty_cache()
+    return {f"ep_rank{r}": o["launches"] for r, o in enumerate(outs)}
+
+
+def phase_multi_gpu(torch, attn, serve, create_model, Trainer, data: str,
+                    work: str, layers: int, dev) -> dict:
+    """Phase 16; returns K1's and K2's launches by path (per rank)."""
+    launches = {"ntrain_nccl1": phase_nccl_rank(torch, attn, data, work,
+                                                layers)}
+    probe = nccl_duplicate_probe(work)
+    print(f"phase 16(b) two ranks on one card: NCCL {probe}; the ranks use "
+          "gloo on CUDA tensors")
+    launches.update(phase_dp(torch, attn, create_model, Trainer, data, work,
+                             dev))
+    launches.update(phase_ep(torch, attn, serve, create_model, Trainer, data,
+                             work, dev))
+    return launches
+
+
 def profile(torch, fn, label: str):
     """Device time by kernel of one ``fn()`` (a train step or a serve
     forward), and the device's busy share of its wall time."""
@@ -2612,6 +3143,8 @@ def main() -> int:
         _, mix_launches, vit_b = phase_mixtures(
             torch, attn, serve, create_model, Trainer, data, work,
             mean_std["mean"], mean_std["std"], dev)
+        multi_launches = phase_multi_gpu(torch, attn, serve, create_model,
+                                         Trainer, data, work, layers, dev)
 
     borrowed = sorted(m for m in sys.modules if m == "jax"
                       or m.split(".")[0] == "touhouimageclassification_tpu")
@@ -2626,12 +3159,16 @@ def main() -> int:
                               "fit": fit_launches[0],
                               **pipeline_launches,
                               **{path: k1 for path, (k1, _) in
-                                 mix_launches.items()}}, "fit"),
+                                 mix_launches.items()},
+                              **{path: k1 for path, (k1, _) in
+                                 multi_launches.items()}}, "fit"),
         ("K2", "slab_attention_bwd", "slab_attention_bwd.cu",
          "attention.py:482", {"train": train_launches[1],
                               "fit": fit_launches[1],
                               **{path: k2 for path, (_, k2) in
-                                 mix_launches.items() if k2}}, "fit"),
+                                 mix_launches.items() if k2},
+                              **{path: k2 for path, (_, k2) in
+                                 multi_launches.items()}}, "fit"),
         ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),
@@ -2668,4 +3205,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

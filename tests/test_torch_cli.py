@@ -133,12 +133,23 @@ def test_pretrain_runs_from_the_scratch_init(workdir, corpus):
                              trainer.cfg.train_id).latest_epoch() == 1
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "head:1234"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"]])
-def test_multi_host_flags_raise(workdir, corpus, flag):
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        ntrain.main([*_common(corpus), "--device", "cpu", *flag])
+@pytest.mark.parametrize("flag", [
+    ["--coordinator", "head:1234", "--device", "cpu"],
+    ["--coordinator", "head:1234", "--num-processes", "2", "--process-id",
+     "2", "--device", "cpu"],
+    ["--coordinator", "head:1234", "--num-processes", "2", "--process-id",
+     "0", "--device", "cuda"]])
+def test_multi_host_flags_raise(workdir, corpus, flag, monkeypatch):
+    """The multi-host flags start a multi-process run (two ranks train in
+    ``test_torch_multiprocess.py``); a launch they cannot describe raises
+    before it reaches the coordinator: no world size or rank, a rank
+    outside the world, a CUDA rank on a machine without a card (never a
+    move to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    match = {"--device cpu": "world size and rank|outside",
+             "--device cuda": "no CUDA device"}[" ".join(flag[-2:])]
+    with pytest.raises((ValueError, RuntimeError), match=match):
+        ntrain.main([*_common(corpus), *flag])
 
 
 def test_cuda_without_a_card_raises(workdir, corpus, monkeypatch):

@@ -153,11 +153,24 @@ def test_loader_batches_equal_jax(dataset, kind):
 
 
 def test_loader_takes_only_a_pinned_process_view(dataset):
+    """A pinned (pid, count) view loads what the JAX loader's does and keeps
+    it over a mesh-derived ``set_process_view``; the 'auto' view is the
+    whole batch without a process group and takes a set view as JAX's
+    does."""
     index = pfolder.scan_image_folder(dataset, persist_class_map=False)
-    with pytest.raises(ValueError, match="multi-GPU"):
-        ploader.HostImageLoader(index, process_shard="auto")
-    half = list(ploader.HostImageLoader(index, batch_size=4,
-                                        process_shard=(1, 2)))
+    auto = ploader.HostImageLoader(index, batch_size=4, process_shard="auto")
+    jauto = jloader.HostImageLoader(index, batch_size=4, process_shard="auto")
+    assert (auto._pid, auto._pcount) == (jauto._pid, jauto._pcount) == (0, 1)
+    auto.set_process_view(1, 2)
+    jauto.set_process_view(1, 2)
+    np.testing.assert_array_equal(next(iter(auto))["image"],
+                                  next(iter(jauto))["image"])
+    with pytest.raises(ValueError, match="not divisible"):
+        auto.set_process_view(0, 3)
+    pinned = ploader.HostImageLoader(index, batch_size=4,
+                                     process_shard=(1, 2))
+    pinned.set_process_view(0, 1)
+    half = list(pinned)
     ref = list(jloader.HostImageLoader(index, batch_size=4,
                                        process_shard=(1, 2)))
     assert len(half) == len(ref) and half[0]["image"].shape[0] == 2

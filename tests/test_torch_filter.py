@@ -152,18 +152,33 @@ def test_filter_with_model_matches_jax(dataset, weights, f32_models,
 
 
 def test_filter_temp_csv_and_dp(dataset, weights, f32_models, tmp_path,
-                                monkeypatch):
-    """Without --csv-file the judge CSV is temporary and removed; --dp > 1
-    raises, naming the multi-GPU item."""
+                                monkeypatch, capsys):
+    """Without --csv-file the judge CSV is temporary and removed. ``--dp 2``
+    (two replicas on the host, each bucket split over them) keeps the tree
+    ``--dp 1`` keeps and judges every image alike; ``--dp 3`` is adjusted
+    to 2 with JAX's message (3 divides no 64-image bucket)."""
     monkeypatch.chdir(tmp_path)
     vit, _ = weights
     base = ["--model", "vit-base", "--weights", vit, "--image", dataset,
-            "-od", str(tmp_path / "kept"), "--device", "cpu"]
-    port_filter.main(base)
+            "--device", "cpu"]
+    port_filter.main([*base, "-od", str(tmp_path / "kept")])
     assert not (tmp_path / "filter_temp.csv").exists()
     assert _tree(tmp_path / "kept")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_filter.main([*base, "--dp", "2"])
+    for dp in ("1", "2"):
+        port_filter.main([*base, "-od", str(tmp_path / f"kept{dp}"),
+                          "--csv-file", str(tmp_path / f"dp{dp}.csv"),
+                          "--dp", dp])
+    assert _tree(tmp_path / "kept2") == _tree(tmp_path / "kept1") == \
+        _tree(tmp_path / "kept")
+    one, two = _judge(tmp_path / "dp1.csv"), _judge(tmp_path / "dp2.csv")
+    assert [r["predicted_class"] for r in two] == \
+        [r["predicted_class"] for r in one]
+    assert max(abs(float(a["confidence"]) - float(b["confidence"]))
+               for a, b in zip(one, two)) <= 1e-4
+    predictor = serve.init(modelt="vit-base", weights=vit, data_dir=dataset,
+                           device="cpu", dp=3)
+    assert len(predictor.replicas) == 2
+    assert "--dp 3 adjusted to 2" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         port_filter.main(["-od", str(tmp_path / "x")])
 

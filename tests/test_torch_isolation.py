@@ -113,16 +113,20 @@ NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "device.py", "train/trainer.py", "train/optim.py",
                "train/losses.py", "ops/augment.py", "ops/mixup.py",
                "models/resnet.py", "web/runtime.py", "ops/moe_dispatch.py",
-               "models/resmoe.py", "models/treevit.py", "train/tasks.py")
+               "models/resmoe.py", "models/treevit.py", "train/tasks.py",
+               "parallel/dist.py", "parallel/mesh.py",
+               "parallel/collectives.py")
 
 
 def test_kernel_wrapper_has_no_fallback():
     """The kernel wrappers (K1-K5), the build, the device choice, the train
     modules that place tensors, the ResNet, the mixtures' dispatch, models
-    and tasks, and the web daemon: no try/except
-    to fall back with and no environment switch near a device. (The build
-    reads CUDA_HOME to find nvcc; the web daemon reads the TIC_WEB_* names
-    of its model, weights and dataset, never its device.)"""
+    and tasks, the web daemon, and the multi-process start-up, grid and
+    collectives: no try/except to fall back with and no environment switch
+    near a device. (The build reads CUDA_HOME to find nvcc; the web daemon
+    reads the TIC_WEB_* names of its model, weights and dataset, never its
+    device; the start-up reads only its launch variables, ``LAUNCH_VARS``,
+    on a line that names no device.)"""
     for module in NO_FALLBACK:
         src = (PORT / module).read_text()
         environ = [line for line in src.splitlines() if "environ" in line]
@@ -135,6 +139,10 @@ def test_kernel_wrapper_has_no_fallback():
             assert src.count("except Exception as e:") == 1
             src = src.replace("try:", "").replace(
                 "except Exception as e:", "")
+        elif module == "parallel/dist.py":
+            assert environ and all("LAUNCH_VARS" in line
+                                   and "device" not in line
+                                   for line in environ), environ
         else:
             assert all("CUDA_HOME" in line for line in environ), (module,
                                                                    environ)

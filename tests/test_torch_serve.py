@@ -148,11 +148,24 @@ def test_init_never_falls_back_to_cpu(tiny_cli, dataset, monkeypatch):
 
 def test_init_rejects_what_the_port_cannot_load(tiny_cli, dataset, tmp_path):
     """A directory is a serving export only with its serving_meta.json
-    (``test_torch_cli.py`` serves a real one); --dp > 1 is not ported."""
+    (``test_torch_cli.py`` serves a real one). ``--dp 2``, which the port
+    once refused, now loads two replicas (on the CPU both on the host) and
+    splits each judge bucket over them: the judge CSV predicts what
+    ``--dp 1``'s does."""
     with pytest.raises(FileNotFoundError, match="serving_meta.json"):
         serve.init(modelt="vit-base", weights=str(tmp_path), data_dir=dataset,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="--dp"):
+    rows = {}
+    for dp in ("1", "2"):
+        out = tmp_path / f"dp{dp}.csv"
         serve.main(["--model", "vit-base", "--image", dataset, "--weights",
                     tiny_cli, "--data-dir", dataset, "--device", "cpu",
-                    "--dp", "2"])
+                    "--full", "--canvas-cache", "off", "--output", str(out),
+                    "--dp", dp])
+        with open(out, newline="") as f:
+            rows[dp] = list(csv.DictReader(f))
+    assert len(rows["2"]) == len(rows["1"]) == N_CLASSES * 5
+    for a, b in zip(rows["1"], rows["2"]):
+        assert (a["path"], a["predicted_class"]) == \
+            (b["path"], b["predicted_class"])
+        assert abs(float(a["confidence"]) - float(b["confidence"])) <= 1e-4

@@ -15,7 +15,9 @@
   epoch on ``--device cpu``, then ``--transform``, then serve from the
   export (equal to a Predictor on the restored model), ``infer.filter
   --model resmoe``, the accuracy sweep's ResMoE row and the web daemon on
-  that export.
+  that export;
+- ``train.resmoe.main --expert-shards 2`` on two gloo ranks, its
+  expert-sharded checkpoint exported by one process.
 """
 import contextlib
 import csv
@@ -30,6 +32,7 @@ import torch
 
 from fixtures import make_image_folder
 from test_torch_copies import port_config
+from torch_mp import merged, spawn
 from touhouimageclassification_tpu.config import (
     PRESETS, AugmentConfig, CheckpointConfig, MixConfig, MoEConfig,
     TrainConfig, TreeViTConfig, ViTConfig)
@@ -289,7 +292,8 @@ def resmoe_run(corpus, tmp_path_factory):
 
 def test_resmoe_cli_fit_and_export(resmoe_run):
     """The epoch's record carries the routing telemetry; the export names
-    its config (3 tiny experts), no ViT config."""
+    its config (3 tiny experts), no ViT config. ``--expert-shards 2`` trains
+    on two ranks and its checkpoint exports from one process."""
     trainer, export, work = resmoe_run
     with open(work / "log" / "ResMoE" / "metrics.jsonl") as f:
         record = json.loads(f.readline())
@@ -301,9 +305,30 @@ def test_resmoe_cli_fit_and_export(resmoe_run):
     assert meta["moe_config"]["num_experts"] == 3
     assert meta["moe_config"]["expert_vit"]["hidden_size"] == 32
     assert meta["model_type"] == "vit-moe" and "vit_config" not in meta
-    with contextlib.chdir(work), pytest.raises(NotImplementedError,
-                                               match="item 12"):
-        resmoe.main([*_argv(trainer.cfg.data_dir), "--expert-shards", "2"])
+    # --expert-shards 2 on two ranks (4 experts, 2 a rank): each rank writes
+    # its own experts beside rank 0's replicated state; one process then
+    # restores both files for --transform, and the export holds every
+    # rank's experts as the ranks left them
+    ep = work / "ep"
+    argv = [*_argv(trainer.cfg.data_dir), "--routing", "sparse",
+            "--num-experts", "4"]
+    outs = spawn(ep / "ranks", "cli", 2, dict(
+        cli="resmoe", workdir=str(ep),
+        argv=[*argv, "--expert-shards", "2", "--no-resume"]))
+    assert [o["expert_index"] for o in outs] == [0, 1]
+    assert outs[0]["step"] == outs[1]["step"] > 0
+    saved = ep / "checkpoint" / "ResMoE" / "1"
+    assert {"state.safetensors", "state.expert1.safetensors"} <= set(
+        os.listdir(saved))
+    with contextlib.chdir(ep):
+        resmoe.main([*argv, "--transform", str(ep / "export")])
+    exported = serve.load_params(str(ep / "export" / "params.safetensors"))
+    ranks = merged(outs)
+    assert exported.keys() == ranks.keys()
+    assert {k.split(".")[1] for k in exported if k.startswith("experts")} \
+        == {"0", "1", "2", "3"}
+    for k in ranks:
+        assert torch.equal(exported[k], ranks[k]), k
 
 
 def test_resmoe_export_serves_as_the_trained_model(resmoe_run, corpus,

@@ -58,10 +58,6 @@ def run_sweep(
 ) -> list[dict]:
     from ..infer import serve as serve_mod
 
-    if dp > 1:
-        raise NotImplementedError(
-            "--dp > 1 needs multi-GPU serving, not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
     models = models if models is not None else MODELS
     os.makedirs(result_dir, exist_ok=True)
     rows: list[dict] = []
@@ -77,7 +73,7 @@ def run_sweep(
             predictor = serve_mod.init(
                 modelt=mtype, weights=checkpoint,
                 data_dir=data_dir or serve_mod.FILTERED_DATA_DIR,
-                device=device)
+                device=device, dp=dp)
             # one test set scored by every model: the first judge fills the
             # decoded-canvas cache, the others stream it
             serve_mod.full_judge(predictor, test_dir, out_csv,
@@ -97,8 +93,7 @@ def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser()
     parser.add_argument("--recompute", "-r", action="store_true")
     parser.add_argument("--dp", type=int, default=0,
-                        help="shard judging over this many devices (more "
-                             "than 1 is not ported yet)")
+                        help="shard judging over this many devices")
     parser.add_argument("--canvas-cache", choices=["auto", "on", "off"],
                         default="on",
                         help="build/reuse the test set's decoded-canvas "

@@ -4,8 +4,9 @@ uint8 canvases and the batch loader (``loader``, ``native_loader``), and the
 decoded-canvas cache (``canvas_cache``). Batches are numpy arrays;
 ``Trainer.stage`` and ``Predictor.stage`` upload them.
 
-:func:`image_loader` is ``HostImageLoader`` for one process, the only view
-the port has until multi-GPU (ROADMAP.md queue 1, item 12).
+:func:`image_loader` is ``HostImageLoader``; in a multi-process run each
+rank loads its slice of every global batch (the ``'auto'`` view, which the
+trainer's ``set_process_view`` refines from its mesh).
 """
 from __future__ import annotations
 
@@ -21,6 +22,5 @@ __all__ = ["HostImageLoader", "ImageFolderIndex", "decode_image",
 
 
 def image_loader(index, indices: Sequence[int], **kwargs: Any) -> HostImageLoader:
-    """``HostImageLoader(index, indices, **kwargs)``: every batch whole, in
-    this process."""
+    """``HostImageLoader(index, indices, **kwargs)``."""
     return HostImageLoader(index, indices, **kwargs)

@@ -11,11 +11,12 @@ batches so host IO overlaps the device step.
 A native C++ decoder (``native/``, libjpeg-based) can replace the PIL path
 via ``decode_backend='native'`` once built; the interface is identical.
 
-The port's copy of the JAX package's ``data/loader.py``. One process loads
-every batch whole (``process_shard=(0, 1)``); the JAX package's ``'auto'``
-view, which asks JAX for the process index, its mesh-derived
-``set_process_view`` and ``device_put_iterator`` come with multi-GPU
-(ROADMAP.md queue 1, item 12).
+The port's copy of the JAX package's ``data/loader.py``. The ``'auto'``
+process view asks ``torch.distributed`` for the rank and the world size
+where the JAX package asks JAX for the process index and count, and the
+trainer's mesh-derived ``set_process_view`` overrides it. The JAX
+package's ``device_put_iterator`` has no counterpart: each rank uploads its
+own rows (``Trainer.stage``).
 """
 from __future__ import annotations
 
@@ -129,7 +130,7 @@ class HostImageLoader:
         loop: bool = False,
         decode_backend: str = "auto",
         canvas_cache: bool | str = False,
-        process_shard: tuple[int, int] = (0, 1),
+        process_shard: bool | str | tuple[int, int] = "auto",
         on_error: str = "raise",
     ):
         self.index = index
@@ -139,23 +140,36 @@ class HostImageLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
-        # Input sharding: ``batch_size`` is GLOBAL; under N processes each
-        # one decodes only batch_size/N images per step (disjoint strided
-        # slices of the shared epoch permutation, the DistributedSampler
-        # contract), and every process yields the same number of batches
-        # per epoch. Until multi-GPU there is one process: (0, 1).
-        if not isinstance(process_shard, tuple):
-            raise ValueError(
-                f"process_shard must be a (pid, count) tuple, got "
-                f"{process_shard!r}; the JAX package's 'auto' view comes with "
-                "multi-GPU (ROADMAP.md queue 1, item 12)")
-        self._pid, self._pcount = process_shard
+        # Multi-process input sharding: ``batch_size`` is GLOBAL; under N
+        # processes each one decodes only batch_size/N images per step
+        # (disjoint strided slices of the shared epoch permutation — the
+        # DistributedSampler contract), and every process yields the same
+        # number of batches per epoch so collectives stay in lockstep.
+        # An explicit ``(pid, count)`` tuple overrides the process group's
+        # view AND the trainer's later mesh-derived ``set_process_view``.
+        self._pid, self._pcount = 0, 1
+        self._pinned_view = isinstance(process_shard, tuple)
+        if self._pinned_view:
+            self._pid, self._pcount = process_shard
+        elif process_shard == "auto" or process_shard is True:
+            import torch.distributed as dist
+
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                self._pid = dist.get_rank()
+                self._pcount = dist.get_world_size()
         if batch_size % self._pcount:
-            raise ValueError(
-                f"global batch {batch_size} not divisible by "
-                f"{self._pcount} processes"
-            )
-        self._local_batch = batch_size // self._pcount
+            if self._pinned_view:
+                raise ValueError(
+                    f"global batch {batch_size} not divisible by "
+                    f"{self._pcount} processes"
+                )
+            # the 'auto' guess may be overridden by the trainer's
+            # mesh-derived view before iteration (e.g. a pure-EP mesh needs
+            # NO split even though the world size doesn't divide the
+            # batch): defer the error to iteration time
+            self._local_batch = None
+        else:
+            self._local_batch = batch_size // self._pcount
         # 'raise' (default): corrupt data aborts LOUDLY — a training run must
         # not silently learn from zero images. 'skip': undecodable files are
         # masked out of the batch (serving/statistics consumers that must
@@ -194,6 +208,33 @@ class HostImageLoader:
 
     def steps_per_epoch(self) -> int:
         return len(self)
+
+    def set_process_view(self, pid: int, pcount: int) -> None:
+        """Override the multi-process input split.
+
+        The ``process_shard='auto'`` default splits by the world size —
+        right only when the batch axis of the mesh aligns with the ranks.
+        The trainer calls this with ``parallel.mesh.process_input_view`` of
+        its mesh (e.g. a pure-EP mesh replicates the batch across ranks, so
+        every rank must load ALL of it: view (0, 1)).
+        A loader constructed with an explicit ``(pid, count)`` tuple keeps
+        its pinned view (the caller asked for exactly that coverage).
+        """
+        if self._pinned_view:
+            if (pid, pcount) != (self._pid, self._pcount):
+                logging.getLogger(__name__).warning(
+                    "loader has an explicitly pinned process view %s; "
+                    "keeping it over the mesh-derived view %s",
+                    (self._pid, self._pcount), (pid, pcount),
+                )
+            return
+        if self.batch_size % pcount:
+            raise ValueError(
+                f"global batch {self.batch_size} not divisible by "
+                f"{pcount} input shards"
+            )
+        self._pid, self._pcount = pid, pcount
+        self._local_batch = self.batch_size // pcount
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """Pin the next epoch's shuffle order (DistributedSampler contract)
@@ -268,6 +309,13 @@ class HostImageLoader:
         return {"image": image, "label": label, "mask": mask}
 
     def _iter_epoch(self, pool: ThreadPoolExecutor) -> Iterator[dict]:
+        if self._local_batch is None:
+            raise ValueError(
+                f"global batch {self.batch_size} not divisible by the "
+                f"{self._pcount}-process auto input split; set an explicit "
+                f"view with set_process_view() (the Trainer does this from "
+                f"the mesh) or choose a divisible batch size"
+            )
         order = self._epoch_order()
         self._epoch += 1
         skip = self._start_batch

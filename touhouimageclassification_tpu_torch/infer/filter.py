@@ -8,7 +8,7 @@ the stage that produced ``data/data_filtered_vit_base`` (the reference's
 ``TIC/utils/filter.py:8-55``). With ``--model`` the port's judge
 (``infer/serve.py``) runs first, on ``--device`` (``cuda`` by default;
 CUDA without a GPU raises). The same CSV schema, report, tree and flags as
-the JAX package's; ``--dp > 1`` is not ported.
+the JAX package's, ``--dp`` included.
 
 CLI: ``python -m touhouimageclassification_tpu_torch.infer.filter --model
 vit-large --weights <ckpt> --image <dataset> -od <filtered>``
@@ -85,7 +85,7 @@ def main(argv=None):
                         help="Dataset folder the judge scores (with --model).")
     parser.add_argument("--dp", type=int, default=0,
                         help="shard judge batches over this many devices "
-                             "(0/1 = single device; more is not ported yet)")
+                             "(0/1 = single device)")
     parser.add_argument("--canvas-cache", choices=["auto", "on", "off"],
                         default="auto",
                         help="reuse (auto) or build (on) the dataset's "

@@ -10,6 +10,11 @@ differs:
 - weights go to the device once, in the model's compute dtype;
 - ``stage`` pads a batch in pinned host memory and starts a non-blocking
   upload, so the upload of batch i+1 overlaps the predict of batch i;
+- ``--dp n`` holds one replica of the model on each of the first n devices
+  of this process (JAX's ``--dp``: n adjusted to the device count and to
+  a divisor of the 64-image bucket, with JAX's message) and splits each
+  judge bucket over them; a bucket n does not divide is served whole. On
+  the CPU the n replicas share the host;
 - the model is any family the port has (ViT, ResNet, ResMoE, TreeViT),
   dispatched by the model type or by the export's meta;
 - weights are reference torch checkpoints (HF-layout ViT, torchvision-
@@ -28,6 +33,7 @@ vit-large --image data/testset --weights <ckpt> --output result/x.csv --full``
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 from dataclasses import dataclass
@@ -87,17 +93,48 @@ class Predictor:
         self.model = self.model.to(self.device).eval()
         self._mean = tuple(float(m) for m in np.asarray(self.mean).reshape(-1))
         self._std = tuple(float(s) for s in np.asarray(self.std).reshape(-1))
+        self.replicas: list[tuple[nn.Module, torch.device]] = [
+            (self.model, self.device)]
 
-    @torch.inference_mode()
-    def _predict(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 on the device -> (2, B) f32: predicted index and
-        confidence, one tensor so a request costs one device->host copy."""
+    def replicate(self, n: int) -> "Predictor":
+        """Hold ``n`` replicas: this one's device, then the first other
+        CUDA devices (on the CPU, n replicas on the host); returns self."""
+        if self.device.type == "cuda":
+            others = [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())
+                      if i != self.device.index]
+        else:
+            others = [self.device] * (n - 1)
+        if len(others) < n - 1:
+            raise ValueError(f"{n} replicas need {n} devices, have "
+                             f"{len(others) + 1}")
+        self.replicas = [(self.model, self.device)] + [
+            (copy.deepcopy(self.model).to(d).eval(), d)
+            for d in others[:n - 1]]
+        return self
+
+    def _logits(self, model: nn.Module,
+                images_u8: torch.Tensor) -> torch.Tensor:
         imgs = images_u8.float() / 255.0
         if tuple(imgs.shape[1:3]) != tuple(self.image_size):
             imgs = resize(imgs, self.image_size)
         imgs = normalize(imgs, self._mean, self._std)
-        outputs = self.model(imgs)
-        logits = outputs[0] if isinstance(outputs, tuple) else outputs
+        outputs = model(imgs)
+        return outputs[0] if isinstance(outputs, tuple) else outputs
+
+    @torch.inference_mode()
+    def _predict(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the device -> (2, B) f32: predicted index and
+        confidence, one tensor so a request costs one device->host copy.
+        With replicas, a batch they divide is split over them."""
+        n = len(self.replicas)
+        if n > 1 and images_u8.shape[0] % n == 0:
+            parts = [self._logits(model, chunk.to(dev, non_blocking=True))
+                     for (model, dev), chunk in zip(self.replicas,
+                                                    images_u8.chunk(n))]
+            logits = torch.cat([p.to(self.device) for p in parts])
+        else:
+            logits = self._logits(self.model, images_u8)
         probs = torch.softmax(logits.float(), dim=-1)
         conf, pred = probs.max(dim=-1)
         return torch.stack([pred.float(), conf])
@@ -152,8 +189,39 @@ def serve(predictor: Predictor, image) -> tuple[str, float]:
     return predictor.predict_images([image])[0]
 
 
+def dp_replicas(dp: int, device: torch.device) -> int:
+    """The replica count for ``--dp dp``: at most the CUDA device count (on
+    the CPU, ``dp`` itself) and a divisor of the largest bucket, adjusted
+    with the JAX package's message."""
+    if not dp or dp <= 1:
+        return 1
+    available = (torch.cuda.device_count() if device.type == "cuda"
+                 else dp)
+    n = min(dp, available)
+    while n > 1 and BUCKETS[-1] % n:
+        n -= 1
+    if n != dp:
+        print(f"--dp {dp} adjusted to {n} "
+              f"(must divide the {BUCKETS[-1]}-image judge bucket and "
+              f"fit {available} devices)")
+    return n
+
+
 def init(args=None, modelt=None, weights=None,
-         data_dir: str = FILTERED_DATA_DIR, device="cuda") -> Predictor:
+         data_dir: str = FILTERED_DATA_DIR, device="cuda",
+         dp: int = 0) -> Predictor:
+    """:func:`build_predictor` with ``dp`` replicas (``args.dp`` on the
+    command line; see :func:`dp_replicas`)."""
+    if args:
+        dp = getattr(args, "dp", 0) or 0
+    predictor = build_predictor(args, modelt, weights, data_dir, device)
+    n = dp_replicas(dp, predictor.device)
+    return predictor.replicate(n) if n > 1 else predictor
+
+
+def build_predictor(args=None, modelt=None, weights=None,
+                    data_dir: str = FILTERED_DATA_DIR,
+                    device="cuda") -> Predictor:
     """Build a Predictor: class map + weights + normalisation statistics.
 
     ``weights`` is a reference torch checkpoint of the model type's family
@@ -170,10 +238,6 @@ def init(args=None, modelt=None, weights=None,
         weights = getattr(args, "weights", None)
         data_dir = getattr(args, "data_dir", None) or data_dir
         device = getattr(args, "device", None) or device
-        if (getattr(args, "dp", 0) or 0) > 1:
-            raise NotImplementedError(
-                "--dp > 1 needs multi-GPU serving, not ported yet "
-                "(ROADMAP.md queue 1, item 12)")
     device = resolve_device(device)
     mt = modelt.lower().replace("_", "-")
     if weights is None:
@@ -400,7 +464,7 @@ def main(argv=None):
     parser.add_argument("--full", action="store_true")
     parser.add_argument("--dp", type=int, default=0,
                         help="shard judge batches over this many devices "
-                             "(0/1 = single device; more is not ported yet)")
+                             "(0/1 = single device)")
     parser.add_argument("--canvas-cache", choices=["auto", "on", "off"],
                         default="auto",
                         help="with --full: reuse (auto) or build (on) the "

@@ -21,9 +21,15 @@ its backward K2.
 The forward returns ``(combined_logits, gate_for_loss, top_k_indices)``:
 ``gate_for_loss`` is the full f32 router softmax under
 ``balance_loss='switch'`` (its gradient must reach unselected experts), else
-the scattered top-k weights, as in JAX. The JAX package's ``_constrain``
-(sharding constraints over a device mesh) does nothing on one device and is
-not ported.
+the scattered top-k weights, as in JAX.
+
+Under an active mesh (``parallel.collectives``) the gate is replicated and
+each expert rank runs only its own experts; the stacked expert outputs are
+summed over the expert group before the combine, which every rank then
+computes whole. Under data parallelism the gate noise is drawn for the
+global batch and the capacity plan is the global batch's
+(``moe_dispatch.make_shard_plan``). The JAX package's ``_constrain``
+(sharding constraints over a device mesh) has no counterpart.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from torch import nn
 
 from ..config import MoEConfig, ViTConfig, vit_config
 from ..ops import moe_dispatch as md
+from ..parallel.collectives import global_count, global_rows, stack_members
 from .vit import ViT
 
 
@@ -78,8 +85,9 @@ class GatingNetwork(nn.Module):
             if generator is None:
                 raise ValueError("a training forward of the gate needs a "
                                  "torch.Generator for its logit noise")
-            noise = torch.randn(logits.shape, generator=generator,
-                                device=logits.device, dtype=logits.dtype)
+            noise = global_rows(lambda n: torch.randn(
+                (n, *logits.shape[1:]), generator=generator,
+                device=logits.device, dtype=logits.dtype), logits.shape[0])
             logits = logits + noise * self.cfg.gateway_t
         top_w, top_i = top_k(logits, self.cfg.top_k)
         router_probs = torch.softmax(logits.float(), dim=-1)
@@ -117,21 +125,22 @@ class MoEClassifier(nn.Module):
         gate_for_loss = (router_probs if cfg.balance_loss == "switch"
                          else gate_dense)
         if cfg.routing == "dense":
-            expert_logits = torch.stack([e(x) for e in self.experts])
+            expert_logits = stack_members(lambda i: self.experts[i](x),
+                                          cfg.num_experts)
             combined = torch.einsum("be,ebc->bc", gate_dense.float(),
                                     expert_logits.float())
             return combined, gate_for_loss, top_i
-        capacity = md.capacity_for(b, cfg.top_k, cfg.num_experts,
-                                   cfg.capacity_factor)
-        plan = md.make_dispatch_plan(top_i, cfg.num_experts, capacity)
+        capacity = md.capacity_for(global_count(b), cfg.top_k,
+                                   cfg.num_experts, cfg.capacity_factor)
+        plan = md.make_shard_plan(top_i, cfg.num_experts, capacity)
         if cfg.dispatch_level == "feature":
-            expert_logits = torch.stack([
-                e.encode(e.embed(x)[idx])
-                for e, idx in zip(self.experts, plan.gather_idx)])
+            def run(i):
+                e = self.experts[i]
+                return e.encode(e.embed(x)[plan.gather_idx[i]])
         else:
-            xs = md.dispatch(plan, x)                    # (E, C, H, W, 3)
-            expert_logits = torch.stack([e(xe) for e, xe in
-                                         zip(self.experts, xs)])
+            def run(i):                                  # (C, H, W, 3) in
+                return self.experts[i](x[plan.gather_idx[i]])
+        expert_logits = stack_members(run, cfg.num_experts)
         combined = md.combine(plan, expert_logits, gate_w, b)
         return combined, gate_for_loss, top_i
 

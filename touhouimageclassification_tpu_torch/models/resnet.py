@@ -42,10 +42,12 @@ import math
 from functools import partial
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import ResNetConfig
+from ..parallel.collectives import data_group
 from .vit import _DTYPES, _TRUNCATED_STD, _truncated_normal_
 
 BN_VARIANTS = ("flax",)
@@ -115,6 +117,55 @@ class _BatchNormTrain(torch.autograd.Function):
         return gx, gw, gb, None
 
 
+class _SyncBatchNormTrain(torch.autograd.Function):
+    """:class:`_BatchNormTrain` over the data group's global batch: the
+    per-channel sums of x and x^2 (f32) and the sample count are summed over
+    ``group`` before E[x] and E[x^2] - E[x]^2 are formed, and the backward
+    sums sum(dy) and sum(dy * (x - mean)) over the group (SyncBatchNorm's
+    semantics on flax's moments). The weight and bias gradients stay this
+    rank's share."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, group):
+        dims = (0, 2, 3)
+        c = x.shape[1]
+        stats = torch.cat([
+            x.sum(dims, dtype=torch.float32),
+            torch.linalg.vector_norm(x, 2, dims,
+                                     dtype=torch.float32).square_(),
+            torch.full((1,), x.numel() // c, dtype=torch.float32,
+                       device=x.device)])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n).sub_(mean.square()).clamp_(min=0)
+        y = torch.native_batch_norm(x, weight, bias, mean, var, False, 0.0,
+                                    eps)[0]
+        ctx.save_for_backward(x, weight, mean, (var + eps).rsqrt(), n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _mean, _var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims = (0, 2, 3)
+        shape = (1, -1, 1, 1)
+        dy = grad.float()
+        xmu = x.float() - mean.view(shape)
+        sums = torch.cat([dy.sum(dims), (dy * xmu).sum(dims)])
+        c = x.shape[1]
+        gb = sums[:c].clone()
+        gw = sums[c:] * invstd
+        dist.all_reduce(sums, group=ctx.group)
+        sum_dy, sum_dy_xmu = sums[:c] / n, sums[c:] / n
+        k = (weight.float() * invstd).view(shape)
+        gx = k * (dy - sum_dy.view(shape)
+                  - xmu * (invstd.square() * sum_dy_xmu).view(shape))
+        return gx.to(x.dtype), gw.to(weight.dtype), gb.to(weight.dtype), \
+            None, None
+
+
 class BatchNorm2d(nn.Module):
     """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=<compute>,
     param_dtype=float32)`` over the channels of an (N, C, H, W) tensor.
@@ -125,8 +176,10 @@ class BatchNorm2d(nn.Module):
     E[x] and E[x^2] - E[x]^2 in f32), the variance biased (divided by
     N H W); the running statistics then become ``0.9 * running + 0.1 *
     batch`` with that same biased variance (torch's ``BatchNorm2d`` folds
-    the unbiased one and calls its rate 0.1). In ``eval()`` mode the running
-    statistics normalise. There is no ``num_batches_tracked`` buffer; the
+    the unbiased one and calls its rate 0.1). Under data parallelism the
+    batch's moments are the global batch's (:class:`_SyncBatchNormTrain`).
+    In ``eval()`` mode the running statistics normalise. There is no
+    ``num_batches_tracked`` buffer; the
     loaders drop a torchvision one.
     """
 
@@ -145,8 +198,14 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
-                                             self.eps)
+        group = data_group()
+        if group is None:
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                                 self.eps)
+        else:
+            y, mean, var = _SyncBatchNormTrain.apply(x, self.weight,
+                                                     self.bias, self.eps,
+                                                     group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1 - m)

@@ -18,6 +18,11 @@ reference's: ``root`` and ``sons.{i}`` (an ``nn.ModuleList`` of the port's
   stays 0.
 
 Returns ``(combined_logits, root_choice_logits, kept_mass)``.
+
+Under an active mesh (``parallel.collectives``) the root is replicated and
+each expert rank runs only its own sons, their stacked outputs summed over
+the expert group; under data parallelism the capacity plan is the global
+batch's (``moe_dispatch.make_shard_plan``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from torch import nn
 
 from ..config import VIT_BASE, TreeViTConfig
 from ..ops import moe_dispatch as md
+from ..parallel.collectives import global_count, stack_members
 from .resmoe import member_seed, top_k
 from .vit import ViT
 
@@ -80,7 +86,8 @@ class TreeViT(nn.Module):
             smoothed = torch.softmax(top_w, dim=-1)
         if not self.training and route_labels is None and cfg.eval_dense:
             _warn_dense_once(cfg.num_categories, cfg.top_k)
-            son_logits = torch.stack([son(x) for son in self.sons])
+            son_logits = stack_members(lambda i: self.sons[i](x),
+                                       cfg.num_categories)
             # the top-k weights scattered to (B, S), JAX's sum over k of
             # one_hot(top_i) * smoothed (no F.one_hot: its index check
             # syncs with the host)
@@ -88,11 +95,11 @@ class TreeViT(nn.Module):
                             device=x.device).scatter_add_(1, top_i, smoothed)
             combined = torch.einsum("bs,sbc->bc", w, son_logits.float())
             return combined, choice, torch.ones(b, device=x.device)
-        capacity = md.capacity_for(b, cfg.top_k, cfg.num_categories,
-                                   cfg.capacity_factor)
-        plan = md.make_dispatch_plan(top_i, cfg.num_categories, capacity)
-        xs = md.dispatch(plan, x)                               # (S, C, ...)
-        son_logits = torch.stack([son(xe) for son, xe in zip(self.sons, xs)])
+        capacity = md.capacity_for(global_count(b), cfg.top_k,
+                                   cfg.num_categories, cfg.capacity_factor)
+        plan = md.make_shard_plan(top_i, cfg.num_categories, capacity)
+        son_logits = stack_members(
+            lambda i: self.sons[i](x[plan.gather_idx[i]]), cfg.num_categories)
         combined = md.combine(plan, son_logits, smoothed, b)
         kept = md.kept_mass(plan, smoothed, b)
         return combined / kept.clamp(min=1e-9)[:, None], choice, kept

@@ -17,6 +17,11 @@ distributions and keep its documented deviations from torchvision
 Resizes are two matmuls with antialiased-linear interpolation-weight
 matrices, per image for the crop boxes, so the port resamples exactly as the
 JAX package does and every shape stays static.
+
+Under data parallelism each rank draws a step's per-image numbers for the
+whole global batch and keeps its own rows
+(``parallel.collectives.global_rows``), so P ranks augment as one process
+does on the global batch.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Callable
 import torch
 
 from ..config import AugmentConfig
+from ..parallel.collectives import global_rows
 
 _LUMA = (0.299, 0.587, 0.114)
 
@@ -88,9 +94,15 @@ def resize(images: torch.Tensor, out_size: tuple[int, int]) -> torch.Tensor:
     return y.to(images.dtype)
 
 
+def _rand(gen: torch.Generator, b: int, device) -> torch.Tensor:
+    """b draws from U[0, 1), one an image, of the global batch's."""
+    return global_rows(
+        lambda n: torch.rand(n, generator=gen, device=device), b)
+
+
 def _uniform(gen: torch.Generator, b: int, lo: float, hi: float,
              device) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(b, generator=gen, device=device)
+    return lo + (hi - lo) * _rand(gen, b, device)
 
 
 def _sample_box(gen, b: int, h: int, w: int, scale, ratio, device):
@@ -102,8 +114,8 @@ def _sample_box(gen, b: int, h: int, w: int, scale, ratio, device):
                                 device))
     box_w = torch.sqrt(area * aspect).clamp(1.0, w)
     box_h = torch.sqrt(area / aspect).clamp(1.0, h)
-    top = torch.rand(b, generator=gen, device=device) * (h - box_h)
-    left = torch.rand(b, generator=gen, device=device) * (w - box_w)
+    top = _rand(gen, b, device) * (h - box_h)
+    left = _rand(gen, b, device) * (w - box_w)
     return top, left, box_h, box_w
 
 
@@ -124,8 +136,7 @@ def random_resized_crop(gen: torch.Generator, images: torch.Tensor,
 
 def _coin(gen: torch.Generator, images: torch.Tensor, p: float) -> torch.Tensor:
     """(B,) bool, each True with probability p."""
-    return torch.rand(images.shape[0], generator=gen,
-                      device=images.device) < p
+    return _rand(gen, images.shape[0], images.device) < p
 
 
 def hflip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:

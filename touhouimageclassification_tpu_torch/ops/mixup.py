@@ -10,20 +10,25 @@ clipped box, and the labels become ``lam * y + (1 - lam) * y_rolled``.
 The few batch-level scalars (coin, lambda, box centre) are drawn on the host
 from a ``numpy.random.Generator``: ``torch.distributions.Beta`` takes no
 generator, and a host draw picks the branch without waiting for the device.
-The scalars are f32, as the JAX package computes them.
+The scalars are f32, as the JAX package computes them. Under data
+parallelism the roll crosses ranks (``parallel.collectives.roll_rows``):
+each rank's first sample mixes with the previous rank's last, as in the
+global batch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import roll_rows
+
 
 def mixup(images: torch.Tensor, labels: torch.Tensor,
           lam: float) -> tuple[torch.Tensor, torch.Tensor]:
     lam = np.float32(lam)
     rest = float(np.float32(1.0) - lam)
-    mixed = float(lam) * images + rest * images.roll(1, dims=0)
-    soft = float(lam) * labels + rest * labels.roll(1, dims=0)
+    mixed = float(lam) * images + rest * roll_rows(images)
+    soft = float(lam) * labels + rest * roll_rows(labels)
     return mixed.to(images.dtype), soft
 
 
@@ -51,10 +56,10 @@ def cutmix(images: torch.Tensor, labels: torch.Tensor, lam: float, cy: float,
     cols = torch.arange(w, dtype=torch.float32, device=images.device)
     in_box = (((rows >= y0) & (rows < y1))[:, None]
               & ((cols >= x0) & (cols < x1))[None, :])
-    mixed = torch.where(in_box[None, :, :, None], images.roll(1, dims=0),
+    mixed = torch.where(in_box[None, :, :, None], roll_rows(images),
                         images)
     rest = float(np.float32(1.0) - np.float32(lam_eff))
-    soft = lam_eff * labels + rest * labels.roll(1, dims=0)
+    soft = lam_eff * labels + rest * roll_rows(labels)
     return mixed.to(images.dtype), soft
 
 

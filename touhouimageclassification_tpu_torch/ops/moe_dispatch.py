@@ -19,6 +19,12 @@ whether or not they are filled.
 - ``jax.ops.segment_sum`` becomes ``index_add_`` in f32.
 
 Indices are int64 (what torch indexes with); their values are JAX's.
+
+Under data parallelism the capacity plan is the global batch's
+(:func:`make_shard_plan`): the (B, K) top-k of every data rank are
+gathered, the global plan decides which assignments survive capacity, and
+each rank dispatches only its own samples' surviving assignments, on at
+most min(C, B) slots an expert.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import data_shard, gather_rows
 
 
 class DispatchPlan(NamedTuple):
@@ -45,18 +53,23 @@ def capacity_for(batch: int, top_k: int, num_experts: int,
 
 
 def make_dispatch_plan(top_k_idx: torch.Tensor, num_experts: int,
-                       capacity: int) -> DispatchPlan:
-    """(B, K) expert indices -> the static-shape routing plan."""
+                       capacity: int,
+                       keep: torch.Tensor | None = None) -> DispatchPlan:
+    """(B, K) expert indices -> the static-shape routing plan. ``keep``
+    (B*K,) bool, when given, decides which assignments survive (at most
+    ``capacity`` an expert); the others are dropped and take no slot."""
     b, k = top_k_idx.shape
     dev = top_k_idx.device
     flat_e = top_k_idx.reshape(-1).long()
     flat_sample = torch.arange(b * k, device=dev) // k
     onehot = torch.zeros(b * k, num_experts, dtype=torch.long,
                          device=dev).scatter_(1, flat_e[:, None], 1)
+    if keep is not None:
+        onehot = onehot * keep[:, None]
     # position of each assignment within its expert (count of earlier ones)
     before = onehot.cumsum(0) - onehot
     pos = before.gather(1, flat_e[:, None])[:, 0]
-    keep = pos < capacity
+    keep = pos < capacity if keep is None else keep
     pos_c = torch.where(keep, pos, torch.full_like(pos, capacity))
     gather_idx = torch.zeros(num_experts, capacity + 1, dtype=torch.long,
                              device=dev)
@@ -68,6 +81,21 @@ def make_dispatch_plan(top_k_idx: torch.Tensor, num_experts: int,
                         slot_valid=slot_valid[:, :capacity],
                         flat_expert=flat_e, flat_pos=pos_c, flat_keep=keep,
                         flat_sample=flat_sample)
+
+
+def make_shard_plan(top_k_idx: torch.Tensor, num_experts: int,
+                    capacity: int) -> DispatchPlan:
+    """:func:`make_dispatch_plan` of the global batch, for this data rank's
+    (B, K) rows: the global plan's survivors among them, on min(capacity,
+    B) slots an expert (an expert takes a sample at most once). One process
+    gets :func:`make_dispatch_plan` itself."""
+    index, count = data_shard()
+    if count == 1:
+        return make_dispatch_plan(top_k_idx, num_experts, capacity)
+    b, k = top_k_idx.shape
+    whole = make_dispatch_plan(gather_rows(top_k_idx), num_experts, capacity)
+    keep = whole.flat_keep[index * b * k:(index + 1) * b * k]
+    return make_dispatch_plan(top_k_idx, num_experts, min(capacity, b), keep)
 
 
 def dispatch(plan: DispatchPlan, x: torch.Tensor) -> torch.Tensor:

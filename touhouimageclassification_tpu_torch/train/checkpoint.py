@@ -27,6 +27,19 @@ to ``bytes`` while it holds the interpreter lock, so a background save
 stalls the training thread for that whole copy; handing each tensor's
 buffer to ``write`` releases the lock for the copy to the file
 (``tools/checkpoint_write_study.py`` times both).
+
+Several processes (a manager given the trainer's ``mesh``) save together
+and the checkpoint restores into any world size, as the JAX package's Orbax
+saves do. Every rank calls :meth:`CheckpointManager.save`; the ranks of
+the mesh's first data row write: the one at expert index 0 the replicated
+state and its own experts into ``state.safetensors``, the one at expert
+index e > 0 its own ``experts.{i}.*`` / ``sons.{i}.*`` members (and their
+optimizer state) under those global names into
+``state.expert<e>.safetensors``. Rank 0 writes ``meta.json`` after a
+barrier, renames the directory into place and applies the retention, and a
+last barrier lets every rank see it. Such a save is synchronous. A restore
+reads every ``state*.safetensors`` of the directory and keeps what the
+rank holds.
 """
 from __future__ import annotations
 
@@ -40,6 +53,8 @@ import torch
 from safetensors.torch import load_file
 
 from ..config import CheckpointConfig
+from ..parallel import collectives, sharding
+from ..parallel.dist import world
 
 STATE_FILE = "state.safetensors"
 META_FILE = "meta.json"
@@ -104,20 +119,31 @@ def kept_steps(cfg: CheckpointConfig,
     return keep
 
 
-def state_tensors(state) -> tuple[dict[str, torch.Tensor], dict]:
+def shard_file(expert_index: int) -> str:
+    """The state file expert rank ``expert_index`` writes."""
+    return (STATE_FILE if expert_index == 0 else
+            f"state.expert{expert_index}.safetensors")
+
+
+def state_tensors(state, keep=None) -> tuple[dict[str, torch.Tensor], dict]:
     """A :class:`~.trainer.TrainState` -> (host tensors, meta): parameters,
     ``opt/<name>/<key>`` and ``acc/<name>``; ``step``, ``count``,
-    ``mini_step`` and the inner optimizer's ``param_groups``."""
+    ``mini_step`` and the inner optimizer's ``param_groups``. ``keep``
+    (a parameter or buffer name -> bool) limits the tensors to the names it
+    keeps, the optimizer's entries following their parameter's."""
     opt = state.optimizer
     names = {id(p): n for n, p in state.model.named_parameters()}
-    tensors = {n: t.detach() for n, t in state.model.state_dict().items()}
+    tensors = {n: t.detach() for n, t in state.model.state_dict().items()
+               if keep is None or keep(n)}
     inner = opt.inner.state_dict()
     for i, per_param in inner["state"].items():
         for key, value in per_param.items():
-            if torch.is_tensor(value):
-                tensors[f"opt/{names[id(opt.params[i])]}/{key}"] = value
+            name = names[id(opt.params[i])]
+            if torch.is_tensor(value) and (keep is None or keep(name)):
+                tensors[f"opt/{name}/{key}"] = value
     for p, a in zip(opt.params, opt.acc or []):
-        tensors[f"acc/{names[id(p)]}"] = a
+        if keep is None or keep(names[id(p)]):
+            tensors[f"acc/{names[id(p)]}"] = a
     host = {k: v.detach().to("cpu", copy=True).contiguous()
             for k, v in tensors.items()}
     meta = {"step": int(state.step), "count": opt.count,
@@ -146,8 +172,11 @@ def load_state(state, tensors: dict[str, torch.Tensor], meta: dict):
                    if k.startswith(prefix)}
         if entries:
             per_param[i] = entries
-    opt.inner.load_state_dict({"state": per_param,
-                               "param_groups": meta["param_groups"]})
+    # the saved hyperparameters over this optimizer's own parameter lists
+    # (another world size holds another set of parameters)
+    groups = [dict(saved, params=mine["params"]) for saved, mine in zip(
+        meta["param_groups"], opt.inner.state_dict()["param_groups"])]
+    opt.inner.load_state_dict({"state": per_param, "param_groups": groups})
     acc = [tensors.get(f"acc/{names[id(p)]}") for p in opt.params]
     opt.acc = (None if acc[0] is None else
                [a.to(p.device) for a, p in zip(acc, opt.params)])
@@ -162,12 +191,15 @@ class CheckpointManager:
     ``<cfg.directory>/<run_name>``; created at the first save)."""
 
     def __init__(self, cfg: CheckpointConfig, run_name: str,
-                 directory: str | None = None):
+                 directory: str | None = None, mesh=None):
         self.cfg = cfg
         self.directory = os.path.abspath(
             directory if directory else os.path.join(cfg.directory, run_name))
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self.mesh = mesh
+        self._multi = world()[1] > 1
+        self._rank0 = world()[0] == 0
 
     # -- what is on disk ------------------------------------------------
 
@@ -214,9 +246,12 @@ class CheckpointManager:
         latest = self.latest_epoch()
         if latest is not None and latest >= epoch:
             return False
-        tensors, meta = state_tensors(state)
         metrics = {k: (float(v) if isinstance(v, (int, float)) else v)
                    for k, v in metrics.items()}
+        if self._multi:
+            self._save_together(epoch, state, metrics)
+            return True
+        tensors, meta = state_tensors(state)
         if self.cfg.async_save:
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(epoch, tensors, meta, metrics),
@@ -225,6 +260,44 @@ class CheckpointManager:
         else:
             self._write(epoch, tensors, meta, metrics)
         return True
+
+    def _save_together(self, epoch: int, state, metrics: dict) -> None:
+        """The multi-process save: each writing rank its file, then rank 0
+        the meta, the rename and the retention, between barriers."""
+        mesh = self.mesh
+        e = mesh.expert_index if mesh is not None else 0
+        writes = mesh is None or mesh.data_index == 0
+        sizes = sharding.stack_sizes(state.model)
+        shards = mesh.num_expert if mesh is not None else 1
+
+        def keep(name: str) -> bool:
+            owner = sharding.owner(name, sizes, shards)
+            return owner == e or (owner is None and e == 0)
+
+        tensors, meta = state_tensors(state, keep) if writes else ({}, None)
+        final = self._path(epoch)
+        tmp = final + _TMP
+        if self._rank0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        collectives.barrier()
+        if writes:
+            save_safetensors(tensors, os.path.join(tmp, shard_file(e)))
+        collectives.barrier()
+        if self._rank0:
+            for name, obj in ((META_FILE, meta), (METRICS_FILE, metrics)):
+                with open(os.path.join(tmp, name), "w") as f:
+                    json.dump(obj, f)
+            os.rename(tmp, final)
+            self._retain()
+        collectives.barrier()
+
+    def _retain(self) -> None:
+        saved = [(s, self.metrics(s)) for s in self.all_steps()]
+        keep = kept_steps(self.cfg, saved)
+        for s, _ in saved:
+            if s not in keep:
+                shutil.rmtree(self._path(s))
 
     def _write_guarded(self, *args) -> None:
         try:
@@ -244,11 +317,7 @@ class CheckpointManager:
             with open(os.path.join(tmp, name), "w") as f:
                 json.dump(obj, f)
         os.rename(tmp, final)
-        saved = [(s, self.metrics(s)) for s in self.all_steps()]
-        keep = kept_steps(self.cfg, saved)
-        for s, _ in saved:
-            if s not in keep:
-                shutil.rmtree(self._path(s))
+        self._retain()
 
     def restore(self, state, epoch: int | None = None):
         """Load step ``epoch`` (default: the latest) into ``state`` in
@@ -259,11 +328,26 @@ class CheckpointManager:
         path = self._path(epoch)
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
-        return load_state(state, load_file(os.path.join(path, STATE_FILE)),
-                          meta)
+        tensors: dict[str, torch.Tensor] = {}
+        for name in sorted(os.listdir(path)):
+            if name.startswith("state") and name.endswith(".safetensors"):
+                tensors.update(load_file(os.path.join(path, name)))
+        return load_state(state, tensors, meta)
 
     def delete(self, step: int) -> None:
         shutil.rmtree(self._path(step))
+
+    def purge(self) -> None:
+        """Remove every save. In a multi-process run every rank calls this
+        together: what each read of the directory before is settled at a
+        first barrier, rank 0 removes, and a second barrier follows."""
+        if self._multi:
+            collectives.barrier()
+        if self._rank0:
+            for step in self.all_steps():
+                self.delete(step)
+        if self._multi:
+            collectives.barrier()
 
     def wait(self) -> None:
         """Join the background save, re-raising what it raised."""

@@ -4,8 +4,11 @@
 Every trainer entry point takes ``--restore`` (checkpoint path / resume),
 ``--test`` (evaluate on the test set), ``--transform`` (export a training
 checkpoint to serving weights) and ``--device`` (``cuda`` by default; CUDA
-without a GPU raises). The multi-host flags stay in the parser and raise:
-multi-GPU training is ROADMAP.md queue 1, item 12.
+without a GPU raises). Several processes train together through the
+multi-host flags (``--coordinator host:port --num-processes N --process-id
+i``, one launch a process), a torchrun launch (its variables, no flags), or
+the JAX package's ``JAX_COORDINATOR_ADDRESS``; each rank runs on
+``cuda:<LOCAL_RANK>`` (``--device cpu``: the CPU, over gloo).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from ..config import TrainConfig, get_image_size
 from ..data import (get_class_to_idx, image_loader, random_split,
                     scan_image_folder)
 from ..models import model_config_key
+from ..parallel.dist import initialize_distributed, world
 from ..utils.mean_std import get_mean_std
 from .checkpoint import (SERVING_META, SERVING_PARAMS, CheckpointManager,
                          save_params)
@@ -101,6 +105,8 @@ def export_for_serving(cfg: TrainConfig, trainer: Trainer, out_path: str,
     epoch = epoch if epoch is not None else (ckpt.best_epoch()
                                              or ckpt.latest_epoch())
     ckpt.restore(state, epoch)
+    if world()[0] != 0:
+        return out_path  # rank 0 writes the export of a multi-process run
     os.makedirs(out_path, exist_ok=True)
     save_params(os.path.join(out_path, SERVING_PARAMS),
                 state.model.state_dict())
@@ -151,27 +157,26 @@ def standard_argparser(description: str) -> argparse.ArgumentParser:
                    choices=["constant", "warmup_linear", "step"])
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
-    # multi-host launch: kept so a command line means the same thing as
-    # for the JAX package; raises until multi-GPU is ported
+    # multi-process launch, as for the JAX package (torchrun needs none)
     p.add_argument("--coordinator", type=str, default=None,
-                   help="coordinator host:port for multi-host training "
-                        "(not ported)")
+                   help="coordinator host:port for multi-process training")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
 
 
-def check_single_process(args) -> None:
-    """Raise for the multi-host flags: the port trains in one process."""
-    given = [flag for flag, value in (
-        ("--coordinator", getattr(args, "coordinator", None)),
-        ("--num-processes", getattr(args, "num_processes", None)),
-        ("--process-id", getattr(args, "process_id", None)))
-        if value is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: multi-host training is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
+def init_distributed_from_args(args) -> bool:
+    """Join the process group from the multi-host flags or the launch
+    variables (``parallel.dist.initialize_distributed``; a no-op for one
+    process); the rank's device follows ``--device``. Idempotent: the CLIs
+    that build their model before :func:`run` call it first, and ``run``
+    calls it again."""
+    device = getattr(args, "device", "cuda")
+    return initialize_distributed(
+        getattr(args, "coordinator", None),
+        getattr(args, "num_processes", None),
+        getattr(args, "process_id", None),
+        device=None if device == "cuda" else device)
 
 
 def apply_overrides(cfg: TrainConfig, args) -> TrainConfig:
@@ -201,7 +206,7 @@ def apply_overrides(cfg: TrainConfig, args) -> TrainConfig:
 def run(cfg: TrainConfig, args, model=None, task=None, param_filter=None,
         init_params=None) -> Trainer:
     """The common --transform / --test / fit flow on ``args.device``."""
-    check_single_process(args)
+    init_distributed_from_args(args)
     cfg = resolve_normalize_stats(cfg)
     trainer = Trainer(cfg, model=model, task=task,
                       device=getattr(args, "device", "cuda"),

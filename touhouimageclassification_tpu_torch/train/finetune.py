@@ -14,7 +14,7 @@ import dataclasses
 
 from ..config import PRESETS
 from ..data import scan_image_folder
-from .cli import apply_overrides, check_single_process, run, standard_argparser
+from .cli import apply_overrides, init_distributed_from_args, run, standard_argparser
 from .ntrain import add_size_flags, build_vit
 
 
@@ -23,7 +23,7 @@ def main(argv=None, preset: str = "finetune_vit_base"):
     parser.add_argument("--no-pretrained", action="store_true")
     add_size_flags(parser)
     args = parser.parse_args(argv)
-    check_single_process(args)
+    init_distributed_from_args(args)
 
     cfg = apply_overrides(PRESETS[preset], args)
     model, init_params = build_vit(cfg, args)

@@ -6,19 +6,41 @@ ResMoE objective (``TIC/ResMoE/train.py:21-36``): ``symmetric_cross_entropy``
 reference's quadratic ``load_balance_loss`` or the Switch Transformer's
 ``switch_load_balance_loss``; ``moe_total_loss`` sums SCE and the quadratic
 one.
+
+Under data parallelism every batch reduction is global: the sums of a mean
+(its numerator and its denominator) are summed over the data group
+(``parallel.collectives.sum_over_data``) before they divide, so each rank
+holds the loss of the global batch and the backward carries the gradient of
+that loss.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import data_group, global_count, sum_over_data
+
 
 def _weighted_mean(per_sample: torch.Tensor,
                    w: torch.Tensor | None) -> torch.Tensor:
+    if data_group() is None:
+        if w is None:
+            return per_sample.mean()
+        w = w.to(per_sample.dtype)
+        return (per_sample * w).sum() / w.sum().clamp(min=1.0)
     if w is None:
-        return per_sample.mean()
+        return (sum_over_data(per_sample.sum())
+                / global_count(per_sample.shape[0]))
     w = w.to(per_sample.dtype)
-    return (per_sample * w).sum() / w.sum().clamp(min=1.0)
+    sums = sum_over_data(torch.stack([(per_sample * w).sum(), w.sum()]))
+    return sums[0] / sums[1].clamp(min=1.0)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean(0)`` over the global batch."""
+    if data_group() is None:
+        return x.mean(0)
+    return sum_over_data(x.sum(0)) / global_count(x.shape[0])
 
 
 def cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor,
@@ -56,7 +78,7 @@ def symmetric_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def load_balance_loss(gate_weights: torch.Tensor) -> torch.Tensor:
     """The reference's quadratic gate-usage penalty: the mean over samples
     of <gate_weights_i, mean gate usage>."""
-    return (gate_weights @ gate_weights.mean(0)).mean()
+    return _weighted_mean(gate_weights @ batch_mean(gate_weights), None)
 
 
 def switch_load_balance_loss(gate_weights: torch.Tensor,
@@ -67,10 +89,15 @@ def switch_load_balance_loss(gate_weights: torch.Tensor,
     P_e the mean router probability of e (the differentiable half); 1.0 for
     a uniform router."""
     routed = top_idx.reshape(-1)
-    f = torch.zeros(num_experts, device=routed.device).index_add_(
-        0, routed.long(), torch.full(routed.shape, 1.0 / routed.numel(),
-                                     device=routed.device)).detach()
-    p = gate_weights.float().mean(0)
+    if data_group() is None:
+        f = torch.zeros(num_experts, device=routed.device).index_add_(
+            0, routed.long(), torch.full(routed.shape, 1.0 / routed.numel(),
+                                         device=routed.device)).detach()
+    else:
+        counts = torch.zeros(num_experts, device=routed.device).index_add_(
+            0, routed.long(), torch.ones(routed.shape, device=routed.device))
+        f = (sum_over_data(counts) / global_count(routed.numel())).detach()
+    p = batch_mean(gate_weights.float())
     return num_experts * (f * p).sum()
 
 

@@ -20,7 +20,7 @@ from ..device import resolve_device
 from ..models.vit import ViT
 from ..utils.pretrained import load_pretrained_backbone
 from .cli import (SMALL_VIT_DIMS, TINY_VIT_DIMS, apply_overrides,
-                  check_single_process, dataset_num_classes, run,
+                  init_distributed_from_args, dataset_num_classes, run,
                   standard_argparser)
 
 
@@ -65,7 +65,7 @@ def main(argv=None, preset: str = "nvit"):
                              "(full_finetune=False, ntrain.py:34-36)")
     add_size_flags(parser)
     args = parser.parse_args(argv)
-    check_single_process(args)
+    init_distributed_from_args(args)
 
     cfg = apply_overrides(PRESETS[args.preset], args)
     if args.freeze_backbone:

@@ -13,6 +13,11 @@ schedule counting inner updates.
   over k micro-steps; the inner update, and with it the schedule's count,
   advances only on every k-th step.
 
+Under expert parallelism a rank holds its own experts' parameters and the
+replicated ones; the norms (the clip's and the trainer's) add the squares
+of the experts' over the expert group, so every rank sees the norm of the
+whole parameter set.
+
 The update is plain PyTorch: it was no Pallas kernel in the JAX package
 either. The NaN guard lives in the trainer.
 """
@@ -23,6 +28,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..config import OptimizerConfig
+from ..parallel.collectives import all_reduce_sum_
 
 
 def build_schedule(cfg: OptimizerConfig,
@@ -52,22 +58,38 @@ def build_schedule(cfg: OptimizerConfig,
     raise ValueError(f"Unknown schedule: {cfg.schedule}")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Sequence[bool] | None = None,
+                group=None) -> torch.Tensor:
     """L2 norm of all tensors together, as the JAX package's leafsum
     ``fast_global_norm``: per-tensor f32 sums of squares, added in order.
     Non-finite values propagate, so its finiteness doubles as the NaN/Inf
-    gradient check. A 0-d tensor on the tensors' device."""
+    gradient check. A 0-d tensor on the tensors' device.
+
+    With an expert ``group``, ``sharded`` flags the tensors this rank holds
+    alone: their squares are summed over the group, then added to the
+    others'."""
     total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    for t in tensors:
-        total = total + t.float().square().sum()
-    return total.sqrt()
+    if group is None:
+        for t in tensors:
+            total = total + t.float().square().sum()
+        return total.sqrt()
+    own = torch.zeros_like(total)
+    for t, alone in zip(tensors, sharded):
+        if alone:
+            own = own + t.float().square().sum()
+        else:
+            total = total + t.float().square().sum()
+    return (total + all_reduce_sum_(own, group)).sqrt()
 
 
-def clip_by_global_norm(grads: list[torch.Tensor],
-                        max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        sharded: Sequence[bool] | None = None,
+                        group=None) -> list[torch.Tensor]:
     """optax.clip_by_global_norm: unchanged below ``max_norm``, else each
-    gradient is ``g / norm * max_norm``. Decided on the device, no sync."""
-    norm = global_norm(grads)
+    gradient is ``g / norm * max_norm``. Decided on the device, no sync
+    (one all-reduce under expert parallelism)."""
+    norm = global_norm(grads, sharded, group)
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
             for g in grads]
@@ -104,6 +126,9 @@ class Optimizer:
         self.count = 0          # inner updates made (the schedule's count)
         self.mini_step = 0      # micro-steps accumulated since the last one
         self.acc: list[torch.Tensor] | None = None
+        # (flags of the params this rank holds alone, expert group) under
+        # expert parallelism, for the clip's global norm
+        self.norm_split: tuple[list[bool], object] = (None, None)
 
     @property
     def lr(self) -> float:
@@ -122,7 +147,8 @@ class Optimizer:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
         if self.cfg.max_grad_norm > 0:
-            grads = clip_by_global_norm(grads, self.cfg.max_grad_norm)
+            grads = clip_by_global_norm(grads, self.cfg.max_grad_norm,
+                                        *self.norm_split)
         for group in self.inner.param_groups:
             group["lr"] = self.lr
         for p, g in zip(self.params, grads):

@@ -8,18 +8,19 @@ The reference recipe (the ``resmoe`` preset, ``TIC/ResMoE/train.py`` +
 ``parameter.py``): 8 ViT-Base experts and a top-2 ViT-Base gate from the
 seeded scratch initialisation, SGD 5e-2, batch 4 x grad-accum 4, 10 epochs
 of at most 500/100 train/val batches, symmetric CE + 0.5 x the balance
-penalty. ``--routing sparse`` dispatches by capacity. ``--expert-shards``
-above 1 (expert parallelism) needs several GPUs and raises.
+penalty. ``--routing sparse`` dispatches by capacity. ``--expert-shards
+S`` splits the experts over S ranks of a multi-process run (expert
+parallelism, ``parallel/``; the other axis is data parallel).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..config import PRESETS, MoEConfig, ViTConfig
+from ..config import PRESETS, MeshConfig, MoEConfig, ViTConfig
 from ..device import resolve_device
 from ..models.resmoe import MoEClassifier
 from .cli import (SMALL_VIT_DIMS, TINY_VIT_DIMS, apply_overrides,
-                  check_single_process, dataset_num_classes, run,
+                  init_distributed_from_args, dataset_num_classes, run,
                   standard_argparser)
 from .ntrain import add_size_flags
 from .tasks import MoETask
@@ -37,8 +38,7 @@ def main(argv=None):
     parser.add_argument("--num-experts", type=int, default=8)
     parser.add_argument("--top-k", type=int, default=2)
     parser.add_argument("--expert-shards", type=int, default=1,
-                        help="shard experts over this many devices (EP; "
-                             "more than 1 is not ported yet)")
+                        help="shard experts over this many devices (EP)")
     parser.add_argument("--balance-loss", type=str, default="quadratic",
                         choices=["quadratic", "switch"],
                         help="gate balance penalty: reference quadratic "
@@ -52,13 +52,11 @@ def main(argv=None):
                              "(reference default 0.01)")
     add_size_flags(parser)
     args = parser.parse_args(argv)
-    check_single_process(args)
-    if args.expert_shards > 1:
-        raise NotImplementedError(
-            "--expert-shards > 1 needs multi-GPU expert parallelism, not "
-            "ported yet (ROADMAP.md queue 1, item 12)")
+    init_distributed_from_args(args)
 
-    cfg = apply_overrides(PRESETS["resmoe"], args)
+    cfg = dataclasses.replace(
+        apply_overrides(PRESETS["resmoe"], args),
+        mesh=MeshConfig(num_expert_shards=args.expert_shards))
     expert_vit = None
     if args.tiny:
         expert_vit = ViTConfig(**TINY_VIT_DIMS)

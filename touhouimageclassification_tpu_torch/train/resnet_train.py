@@ -16,7 +16,7 @@ from __future__ import annotations
 from ..config import PRESETS
 from ..device import resolve_device
 from ..models.resnet import BN_VARIANTS, resnet
-from .cli import (apply_overrides, check_single_process, dataset_num_classes,
+from .cli import (apply_overrides, init_distributed_from_args, dataset_num_classes,
                   run, standard_argparser)
 
 
@@ -28,7 +28,7 @@ def main(argv=None):
                         help="BatchNorm statistics: 'flax' (nn.BatchNorm; "
                              "the only one ported)")
     args = parser.parse_args(argv)
-    check_single_process(args)
+    init_distributed_from_args(args)
     cfg = apply_overrides(PRESETS["resnet152"], args)
     model = resnet(args.depth, num_classes=dataset_num_classes(cfg),
                    compute_dtype=cfg.compute_dtype, param_dtype="float32",

@@ -12,6 +12,9 @@
   parallel (teacher-forced only while training: eval measures the root's
   real routing), then the whole tree, with capacity-dropped samples masked
   out of the loss.
+
+Under data parallelism the telemetry is the global batch's: the routing
+counts and the kept share are summed over the data group.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from ..config import MoEConfig, TreeViTConfig
 from ..ops import moe_dispatch as md
+from ..parallel.collectives import all_reduce_sum_, data_group, global_count
 from . import losses
 from .trainer import ClassificationTask
 
@@ -48,11 +52,12 @@ class MoETask(ClassificationTask):
         if cfg.routing == "sparse":
             # the share of routed copies past an expert's capacity, and the
             # spread of the experts' shares of the assignments
-            b = gate_for_loss.shape[0]
+            b = global_count(gate_for_loss.shape[0])
             routed = top_i.reshape(-1)
-            counts = torch.zeros(cfg.num_experts,
-                                 device=routed.device).index_add_(
-                0, routed, torch.ones(routed.shape, device=routed.device))
+            counts = all_reduce_sum_(torch.zeros(
+                cfg.num_experts, device=routed.device).index_add_(
+                0, routed, torch.ones(routed.shape, device=routed.device)),
+                data_group())
             capacity = md.capacity_for(b, cfg.top_k, cfg.num_experts,
                                        cfg.capacity_factor)
             load = counts / (b * cfg.top_k)
@@ -143,4 +148,6 @@ def _tree_combined_loss(outputs, soft_labels):
     w = (kept > 0).float()
     sce = losses.symmetric_cross_entropy(combined, soft_labels,
                                          sample_weights=w)
-    return sce, {"dropped_frac": 1.0 - w.mean()}
+    kept_share = (w.mean() if data_group() is None else all_reduce_sum_(
+        w.sum(), data_group()) / global_count(w.shape[0]))
+    return sce, {"dropped_frac": 1.0 - kept_share}

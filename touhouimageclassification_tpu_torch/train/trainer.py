@@ -11,12 +11,14 @@ As in the JAX package:
   draws the mixup scalars and seeds the augmentation's ``torch.Generator``,
   the task's forward generator (ResMoE's gate noise, JAX's ``k_gate``) and,
   for models with dropout, the device's default generator for the forward;
-- the NaN guard: when the loss or the gradient norm is not finite the
-  optimizer update is skipped, parameters, optimizer state and the model's
-  floating buffers (a ResNet's BatchNorm running statistics, which the
-  forward updates in place) stay as they were, and ``step`` still
-  advances. The buffers are copied on the device before the forward and put
-  back only for a skipped step;
+- the NaN guard (``cfg.nan_guard``): when the loss or the gradient norm is
+  not finite the optimizer update is skipped, parameters, optimizer state
+  and the model's floating buffers (a ResNet's BatchNorm running
+  statistics, which the forward updates in place) stay as they were, and
+  ``step`` still advances. The buffers are copied on the device before the
+  forward and put back only for a skipped step. With ``nan_guard=False``
+  the update, the optimizer state and the buffers are committed whatever
+  their values, as in JAX;
 - loss, grad_norm and the task's scalars come back to the host in one
   device -> host copy (``_fetch_scalars``). That copy is the step's one sync,
   and the guard branches on the fetched values on the host;
@@ -29,15 +31,30 @@ optimizer. Batches come from :func:`..data.image_loader` (the numpy
 ``HostImageLoader`` for one process) and are uploaded with
 :meth:`Trainer.stage`.
 
-:meth:`Trainer.fit` is the JAX package's epoch loop for one process:
-per-epoch records in ``<log_dir>/<train_id>/metrics.jsonl``, safetensors
-checkpoints with the same retention (``train/checkpoint.py``), both
-early-stop rules with their state saved in each checkpoint, the profiled
-window, and exact resume: from an explicit path, or automatically from the
-newer of the last full save and the mid-epoch ``<run>_partial`` save that
-SIGTERM leaves, fast-forwarding the loader. ``steps_per_call > 1`` and the
-multi-process parts (input views, the preemption agreement) are not
-ported.
+:meth:`Trainer.fit` is the JAX package's epoch loop: per-epoch records in
+``<log_dir>/<train_id>/metrics.jsonl``, safetensors checkpoints with the
+same retention (``train/checkpoint.py``), both early-stop rules with their
+state saved in each checkpoint, the profiled window, and exact resume: from
+an explicit path, or automatically from the newer of the last full save and
+the mid-epoch ``<run>_partial`` save that SIGTERM leaves, fast-forwarding
+the loader. ``steps_per_call > 1`` is not ported.
+
+Several processes (``parallel/``, one rank a device) train on a (data,
+expert) mesh, by default every rank on the data axis and
+``cfg.mesh.num_expert_shards`` on the expert axis. A step on P data ranks
+computes what one process computes on the global batch: each rank loads
+its slice of it (``_apply_input_view``), the augmentation, the mixup, the
+losses, the BatchNorm moments and the capacity plans are the global
+batch's (``parallel/collectives.py``), and after the backward the
+gradients are averaged over the data group in flat buckets, so the
+gradient norm, the NaN guard's verdict and the fetched loss are the same on
+every rank. The mixtures' ``experts`` / ``sons`` are split over the expert
+axis (``parallel/sharding.py``): a rank runs and updates only its own
+members and the replicated rest. Rank 0 alone writes ``metrics.jsonl``;
+every step the ranks agree on a SIGTERM any of them received
+(``_agree_preempted``), so all stop at the same step; each checkpoint is
+written by the ranks that hold its parts (``train/checkpoint.py``).
+Dropout masks are drawn per rank, not for the global batch.
 """
 from __future__ import annotations
 
@@ -60,6 +77,9 @@ from ..device import resolve_device
 from ..models import create_model, member_vit_config
 from ..ops.augment import build_augment_fn, build_eval_fn
 from ..ops.mixup import cutmix_or_mixup
+from ..parallel import collectives, sharding
+from ..parallel.dist import world
+from ..parallel.mesh import create_mesh, process_input_view
 from ..utils.logging import get_logger
 from ..utils.profiling import trace
 from . import losses
@@ -132,7 +152,9 @@ class Trainer:
     ``utils.convert.from_jax_params`` or ``load_vit_weights``); without it
     the model keeps the weights it has. ``param_filter`` maps a parameter's
     name split on dots (``('layer', '0', 'attn', 'qkv', 'weight')``) to
-    whether it trains."""
+    whether it trains. The mesh is :func:`~..parallel.mesh.create_mesh`
+    over every rank with ``cfg.mesh.num_expert_shards`` on the expert axis
+    (one rank without a process group)."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module | None = None,
                  task: ClassificationTask | None = None,
@@ -141,6 +163,7 @@ class Trainer:
                  param_filter: Callable[[tuple[str, ...]], bool] | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = create_mesh(num_expert=cfg.mesh.num_expert_shards)
         if model is None:
             model = create_model(cfg.model_type, compute_dtype=cfg.compute_dtype,
                                  param_dtype="float32", device=self.device,
@@ -164,6 +187,18 @@ class Trainer:
         self._metrics_path = os.path.join(cfg.log_dir, cfg.train_id,
                                           "metrics.jsonl")
         self._preempted = False
+        # the slice of each global batch this rank loads, from the mesh (a
+        # pure expert-parallel mesh replicates the batch: every rank loads
+        # all of it)
+        self._input_view = process_input_view(self.mesh)
+        self._multi = world()[1] > 1
+        # one process writes the metrics; checkpoints are written by the
+        # ranks that hold their parts
+        self._is_main = world()[0] == 0
+        # parameter name -> the expert rank that holds it (None: every rank)
+        sizes = sharding.stack_sizes(self.model)
+        self._owner = {name: sharding.owner(name, sizes, self.mesh.num_expert)
+                       for name, _ in self.model.named_parameters()}
 
     # ------------------------------------------------------------------
     # state
@@ -195,10 +230,20 @@ class Trainer:
                 opt_cfg.warmup_steps + 1))
         mask = self._trainable_mask()
         trainable = [p for name, p in self.model.named_parameters()
-                     if mask[name]]
-        self.state = TrainState(step=0, model=self.model, optimizer=Optimizer(
-            opt_cfg, trainable, steps_per_epoch))
+                     if mask[name] and self._holds(name)]
+        optimizer = Optimizer(opt_cfg, trainable, steps_per_epoch)
+        if self.mesh.expert_group is not None:
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            optimizer.norm_split = ([self._owner[names[id(p)]] is not None
+                                     for p in trainable],
+                                    self.mesh.expert_group)
+        self.state = TrainState(step=0, model=self.model, optimizer=optimizer)
         return self.state
+
+    def _holds(self, name: str) -> bool:
+        """Whether this rank holds (runs and updates) parameter ``name``."""
+        owner = self._owner[name]
+        return owner is None or owner == self.mesh.expert_index
 
     # ------------------------------------------------------------------
     # steps
@@ -234,27 +279,34 @@ class Trainer:
 
     def train_step(self, state: TrainState,
                    batch: dict[str, torch.Tensor]) -> dict[str, float]:
-        """One NaN-guarded step on a staged batch; returns the fetched
-        metrics (``loss``, ``grad_norm``, the task's scalars)."""
-        images, labels, drop_seed, task_seed = self._inputs(state, batch)
-        task_gen = torch.Generator(device=self.device).manual_seed(task_seed)
+        """One step on a staged batch (this rank's rows of the global
+        batch), NaN-guarded unless ``cfg.nan_guard`` is False; returns the
+        fetched metrics (``loss``, ``grad_norm``, the task's scalars)."""
         model = state.model
         model.zero_grad(set_to_none=True)
         buffers = [b for b in model.buffers() if b.is_floating_point()]
-        saved = (torch.cat([b.reshape(-1) for b in buffers]) if buffers
-                 else None)
+        saved = (torch.cat([b.reshape(-1) for b in buffers])
+                 if buffers and self.cfg.nan_guard else None)
         devices = [self.device.index] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices, enabled=self._dropout):
-            if self._dropout:
-                torch.manual_seed(drop_seed)
-            outputs = self.task.forward(model, images, batch, True, task_gen)
-            loss, aux = self.task.loss(outputs, labels)
-            loss.backward()
-        grad_norm = global_norm([p.grad for p in model.parameters()
-                                 if p.grad is not None])
+        with collectives.use_mesh(self.mesh):
+            images, labels, drop_seed, task_seed = self._inputs(state, batch)
+            task_gen = torch.Generator(device=self.device).manual_seed(
+                task_seed)
+            with torch.random.fork_rng(devices=devices,
+                                       enabled=self._dropout):
+                if self._dropout:
+                    torch.manual_seed(drop_seed)
+                outputs = self.task.forward(model, images, batch, True,
+                                            task_gen)
+                loss, aux = self.task.loss(outputs, labels)
+                loss.backward()
+        grads, sharded = self._reduced_gradients(model)
+        grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
         metrics = _fetch_scalars({"loss": loss.detach(), "grad_norm": grad_norm,
                                   **aux})
-        if np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]):
+        finite = (np.isfinite(metrics["loss"])
+                  and np.isfinite(metrics["grad_norm"]))
+        if finite or not self.cfg.nan_guard:
             state.optimizer.update([p.grad for p in state.optimizer.params])
         elif saved is not None:
             with torch.no_grad():
@@ -264,6 +316,20 @@ class Trainer:
         model.zero_grad(set_to_none=True)
         state.step += 1
         return metrics
+
+    def _reduced_gradients(self, model: nn.Module
+                           ) -> tuple[list[torch.Tensor], list[bool]]:
+        """The gradients of the step (every parameter that has one; under
+        expert parallelism a rank's own members and the replicated rest),
+        averaged over the data group in place, and which of them this rank
+        holds alone."""
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.grad is not None]
+        grads = [p.grad for _, p in named]
+        if self.mesh.data_group is not None:
+            collectives.average_gradients_(grads, self.mesh.data_group,
+                                           self.mesh.num_data)
+        return grads, [self._owner[n] is not None for n, _ in named]
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: dict[str, torch.Tensor],
@@ -285,14 +351,18 @@ class Trainer:
     def evaluate(self, loader, state: TrainState | None = None,
                  limit: int = 0) -> dict[str, float]:
         state = state if state is not None else self.state
+        self._apply_input_view(loader)
         totals = [torch.zeros((), dtype=dt, device=self.device)
                   for dt in (torch.float32, torch.int64, torch.int64)]
-        for i, batch in enumerate(loader):
-            if limit and i >= limit:
-                break
-            self._eval_step(state, self.stage(batch), totals)
-        loss_sum, correct, total = torch.stack(
-            [t.double() for t in totals]).cpu().tolist()
+        with collectives.use_mesh(self.mesh):
+            for i, batch in enumerate(loader):
+                if limit and i >= limit:
+                    break
+                self._eval_step(state, self.stage(batch), totals)
+        # the data group's totals (each rank evaluated its slice)
+        loss_sum, correct, total = collectives.all_reduce_sum_(
+            torch.stack([t.double() for t in totals]),
+            self.mesh.data_group).cpu().tolist()
         if total == 0:
             raise ValueError(
                 "evaluate: no valid samples (empty val split or every "
@@ -310,6 +380,8 @@ class Trainer:
         return get_logger(self.cfg.train_id, self.cfg.log_dir)
 
     def _log_metrics(self, record: dict) -> None:
+        if not self._is_main:
+            return
         os.makedirs(os.path.dirname(self._metrics_path), exist_ok=True)
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -318,6 +390,19 @@ class Trainer:
         self._preempted = True
         self.logger.warning("SIGTERM received: checkpointing at the next "
                             "step boundary and stopping.")
+
+    def _agree_preempted(self) -> bool:
+        """Whether any rank received SIGTERM: one all-reduce of a flag, so
+        every rank breaks at the same step or none does (a lone leaver would
+        leave the others waiting in their next collective). One process:
+        its own flag."""
+        if not self._multi:
+            return self._preempted
+        return collectives.agree_any(self._preempted, self.device)
+
+    def _apply_input_view(self, loader) -> None:
+        if loader is not None and hasattr(loader, "set_process_view"):
+            loader.set_process_view(*self._input_view)
 
     def fit(self, train_loader, val_loader=None,
             resume: bool | str = True) -> list[dict]:
@@ -332,38 +417,37 @@ class Trainer:
             raise NotImplementedError(
                 "steps_per_call > 1 (the lax.scan step fusion) is not ported "
                 "(ROADMAP.md 'Not ported')")
+        self._apply_input_view(train_loader)
         steps_per_epoch = train_loader.steps_per_epoch()
         if cfg.limit_train_batches:
             steps_per_epoch = min(steps_per_epoch, cfg.limit_train_batches)
         self.state = self.init_state(steps_per_epoch)
-        ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id)
+        ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id,
+                                 mesh=self.mesh)
         # Mid-epoch preemption saves live in a `<run>_partial` sibling keyed
         # by global step (monotonic, so never a collision with a re-run of
-        # the same epoch); only the newest is kept
+        # the same epoch); only the newest is kept, and an abandoned
+        # lineage's are purged so they never come back (nor outrank a fresh
+        # save)
         partial = CheckpointManager(
             dataclasses.replace(cfg.checkpoint, monitor="steps_done",
                                 mode="max", top_k=1, every_n_epochs=0,
                                 async_save=False),
-            cfg.train_id, directory=ckpt.directory + "_partial")
-
-        def purge_partial() -> None:
-            """Stale mid-epoch saves of an abandoned lineage must never
-            come back (nor outrank a fresh save)."""
-            for step in partial.all_steps():
-                partial.delete(step)
+            cfg.train_id, directory=ckpt.directory + "_partial",
+            mesh=self.mesh)
 
         start_epoch, resume_offset = 0, 0
         es_meta: dict | None = None  # early-stop state of the resumed save
         if isinstance(resume, str) and resume:
             src = CheckpointManager(cfg.checkpoint, cfg.train_id,
-                                    directory=resume)
+                                    directory=resume, mesh=self.mesh)
             if src.latest_epoch() is None:
                 raise FileNotFoundError(f"No checkpoint under {resume}")
             src.restore(self.state)
             start_epoch = int(src.latest_epoch())
             es_meta = src.metrics(start_epoch)
             self.logger.info("Restored %s (epoch %d)", resume, start_epoch)
-            purge_partial()  # an explicit restore starts a new lineage
+            partial.purge()  # an explicit restore starts a new lineage
         elif resume:
             # the newer of the full and the mid-epoch save, decided before
             # restoring either; a mid-epoch restore fast-forwards the loader
@@ -400,11 +484,11 @@ class Trainer:
                 es_meta = ckpt.metrics(start_epoch)
                 self.logger.info("Resumed from epoch %d", start_epoch)
                 if meta is not None:
-                    purge_partial()  # older than the full save: stale
+                    partial.purge()  # older than the full save: stale
             elif meta is not None:
-                purge_partial()  # orphan of a deleted lineage
+                partial.purge()  # orphan of a deleted lineage
         else:
-            purge_partial()  # resume=False: a fresh lineage
+            partial.purge()  # resume=False: a fresh lineage
 
         history: list[dict] = []
         best = -math.inf if cfg.early_stop_mode == "max" else math.inf
@@ -466,7 +550,9 @@ class Trainer:
 
                 batches = iter(train_loader)
                 for i, host_batch in enumerate(batches):
-                    if self._preempted:
+                    if self._agree_preempted():
+                        # every rank breaks at the same step
+                        self._preempted = True
                         break
                     if (cfg.limit_train_batches
                             and epoch_offset + i >= cfg.limit_train_batches):
@@ -485,7 +571,11 @@ class Trainer:
                     batches.close()  # release the loader's producer thread
                 dt = time.time() - t0
                 train_loss = running / max(nsteps, 1)
-                if self._preempted:
+                # one more agreement an epoch, whichever way the loop ended:
+                # a SIGTERM during a rank's last step must stop every rank
+                # before the evaluation's and the save's collectives
+                if self._agree_preempted():
+                    self._preempted = True
                     done = epoch_offset + consumed
                     if nsteps:
                         partial.save(self.state.step, self.state,

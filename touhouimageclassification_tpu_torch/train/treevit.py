@@ -28,7 +28,7 @@ from ..data.folder import scan_image_folder
 from ..device import resolve_device
 from ..models.treevit import TreeViT
 from .cli import (SMALL_VIT_DIMS, TINY_VIT_DIMS, apply_overrides,
-                  check_single_process, run, standard_argparser)
+                  init_distributed_from_args, run, standard_argparser)
 from .ntrain import add_size_flags
 from .tasks import TreeFullTask, TreeRootTask, TreeSonsTask
 
@@ -79,7 +79,7 @@ def main(argv=None):
     parser.add_argument("--top-k", type=int, default=2)
     add_size_flags(parser)
     args = parser.parse_args(argv)
-    check_single_process(args)
+    init_distributed_from_args(args)
 
     base_cfg = apply_overrides(PRESETS["treevit"], args)
     index = scan_image_folder(base_cfg.data_dir)
