@@ -139,6 +139,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -2532,16 +2533,27 @@ EP_K1 = (MIX_MEMBERS // 2 + 1) * VIT_B_LAYERS   # a rank's 4 experts + gate
 DP_K1 = 24                                      # ViT-L's layers, a step
 DP_STEPS = 2
 DP_BATCH = 16
-# Two ranks of 8 against one process of 16, bf16 compute: the ranks' GEMMs
-# run at half the rows, so cuBLAS may sum in another order and the bf16
-# roundings of 24 layers reach the loss: 1e-2 relative for the loss, 5e-2
-# for the gradient norm. AdamW moves a parameter by at most ~lr a step
-# whatever its gradient, so two runs whose gradients differ stay within
-# 2 x lr a step of each other (a gradient near zero may change sign), plus
-# DP_PARAM_ROUNDING for the f32 rounding of the parameters themselves.
-DP_LOSS_RTOL = 1e-2
-DP_NORM_RTOL = 5e-2
-DP_PARAM_ROUNDING = 1e-6
+# The DP steps are checked in f32 compute without TF32 (the bf16 run on the
+# kernels' mma route is timed only: bf16 roundings hide faults at the
+# global batch's scale, and AdamW moves a parameter by about lr a step
+# whatever its gradient). Held against one process at 16: the gradients the
+# optimizer receives at step 1 (after the all-reduce), the largest
+# ||g - g_one|| / ||g_one|| of a leaf; each step's loss; the parameters after
+# the steps, ||p - p_one|| / ||p_one - p_init|| over all of them (a max
+# |diff| would not do: where a gradient element is near zero, a rounding can
+# flip its sign, and AdamW then moves the two runs 2 lr apart there). The
+# key biases are left out of the parameters: softmax is invariant to them,
+# so their gradient is rounding noise that AdamW scales up to lr. Each limit
+# lies between this run's reading and that of planted faults, which the
+# script runs too and requires to fail: a rank's own gradients before the
+# all-reduce (no all-reduce), and the mixup rolled within each rank's rows
+# (a local roll). Readings on the H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6), gradient / step-1 loss / parameters: 2 ranks 2.0e-6 / 8.7e-8
+# / 1.7e-4; a rank's gradients before the all-reduce 1.05; local roll 0.20
+# / 3.1e-4 / 0.32.
+DP_GRAD_RTOL = 1e-3
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_RTOL = 1e-2
 # Expert parallelism runs each expert at the same batch as one process and
 # adds its logits to zeros: the logits are expected equal; the gradient
 # norm adds the experts' squares in another order.
@@ -2653,13 +2665,105 @@ def ep_batch(b: int = 4) -> dict:
             "mask": np.ones(b, bool)}
 
 
-def vit_l_trainer(torch, create_model, Trainer, cfg, dev):
+def vit_l_trainer(torch, create_model, Trainer, cfg, dev,
+                  compute_dtype: str = "bfloat16"):
     model = create_model("vit-large", num_classes=NUM_CLASSES,
-                         compute_dtype="bfloat16", param_dtype="float32",
+                         compute_dtype=compute_dtype, param_dtype="float32",
                          device=dev, seed=SEED)
     trainer = Trainer(cfg, model=model, device=dev)
     trainer.init_state(4)
     return trainer
+
+
+def dp_f32_steps(torch, create_model, Trainer, data: str, dev,
+                 local_roll: bool = False) -> dict:
+    """ViT-L nvit in f32 compute, DP_STEPS steps of ``dp_batches`` on this
+    process's rows (all of them in one process): each step's loss; the
+    first step's gradients as the optimizer takes them (``grads``; on a
+    rank after the all-reduce) and, on a rank, before the all-reduce
+    (``local``); the parameters after the steps. ``local_roll`` plants a
+    fault: the mixup rolls each rank's rows alone."""
+    from touhouimageclassification_tpu_torch.ops import mixup
+    from touhouimageclassification_tpu_torch.parallel import collectives
+
+    trainer = vit_l_trainer(torch, create_model, Trainer,
+                            nvit_config(data, global_batch_size=DP_BATCH),
+                            dev, "float32")
+    model, state = trainer.model, trainer.state
+    index, count = trainer._input_view
+    b = DP_BATCH // count
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads, local = {}, {}
+    update, average = state.optimizer.update, collectives.average_gradients_
+    roll = mixup.roll_rows
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def recording_update(gs):
+        if not grads:
+            grads.update({names[id(p)]: g.detach().clone()
+                          for p, g in zip(state.optimizer.params, gs)})
+        update(gs)
+
+    def recording_average(gs, *args, **kw):
+        if not local:
+            by_grad = {id(p.grad): n for n, p in model.named_parameters()
+                       if p.grad is not None}
+            local.update({by_grad[id(g)]: g.detach().clone() for g in gs})
+        average(gs, *args, **kw)
+
+    state.optimizer.update = recording_update
+    collectives.average_gradients_ = recording_average
+    if local_roll:
+        mixup.roll_rows = lambda x: x.roll(1, dims=0)
+    try:
+        losses = [trainer.train_step(state, trainer.stage(
+            {k: v[index * b:(index + 1) * b] for k, v in batch.items()}))[
+            "loss"] for batch in dp_batches(DP_STEPS, DP_BATCH)]
+    finally:
+        collectives.average_gradients_, mixup.roll_rows = average, roll
+    del state.optimizer.update   # the recording closure holds the state
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    moved = sum(float(without_key_bias(k, v - init[k]).square().sum())
+                for k, v in params.items()) ** 0.5
+    return {"loss": losses, "grads": grads, "local": local, "params": params,
+            "moved": moved}
+
+
+def without_key_bias(name: str, t):
+    """``t`` with the key bias of an ``attn.qkv.bias`` (its middle third)
+    zeroed."""
+    if name.endswith("attn.qkv.bias"):
+        c = t.shape[0] // 3
+        t = t.clone()
+        t[c:2 * c] = 0
+    return t
+
+
+def dp_readings(torch, run: dict, ref: dict, dev) -> dict:
+    """A run of :func:`dp_f32_steps` against the one process's (``ref``:
+    its ``grad/`` and ``param/`` tensors, its losses and how far its
+    parameters moved): the largest relative gradient difference of a leaf,
+    after and before the all-reduce; each step's relative loss difference;
+    the parameters' difference relative to how far they moved, and the
+    largest element of it, key biases left out."""
+    def grad_rel(grads):
+        worst = 0.0
+        for name, g in grads.items():
+            want = ref["tensors"][f"grad/{name}"].to(dev)
+            worst = max(worst, ((g - want).norm() / want.norm().clamp_min(
+                1e-30)).item())
+        return worst
+
+    sq, largest = 0.0, 0.0
+    for k, v in run["params"].items():
+        d = without_key_bias(k, v - ref["tensors"][f"param/{k}"].to(dev))
+        sq += float(d.square().sum())
+        largest = max(largest, d.abs().max().item())
+    return {"grad_rel": grad_rel(run["grads"]),
+            "local_grad_rel": grad_rel(run["local"]) if run["local"] else None,
+            "loss_rel": [abs(a - b) / abs(b) for a, b in
+                         zip(run["loss"], ref["loss"], strict=True)],
+            "param_rel": sq ** 0.5 / ref["moved"], "param_abs": largest}
 
 
 def resmoe_cfg(data: str, work: str, shards: int):
@@ -2700,12 +2804,13 @@ def moe_logits(torch, trainer, batch) -> "torch.Tensor":
 def rank_dp(torch, attn, rank: int, world: int, work: str, data: str,
             dev) -> dict:
     """One rank of the ViT-L data-parallel steps: this rank's 8 rows of
-    each global batch of 16, the nvit recipe; the gradient all-reduce timed
-    apart."""
+    each global batch of 16, the nvit recipe, bf16 (timed; the gradient
+    all-reduce timed apart), then the f32 check (rank 0 reads it against
+    the one process's steps) and its planted local-roll fault."""
+    from safetensors.torch import load_file
+
     from touhouimageclassification_tpu_torch.models import create_model
     from touhouimageclassification_tpu_torch.parallel import collectives
-    from touhouimageclassification_tpu_torch.train.checkpoint import \
-        save_params
     from touhouimageclassification_tpu_torch.train.trainer import Trainer
 
     reduce_s = []
@@ -2736,14 +2841,31 @@ def rank_dp(torch, attn, rank: int, world: int, work: str, data: str,
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = (attn.launches, attn.bwd_launches)
+    routes = dict(attn.route_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    grad_bytes = sum(p.numel() * 4 for p in state.optimizer.params)
+    collectives.average_gradients_ = average
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = None
     if rank == 0:
-        save_params(os.path.join(work, "dp_params.safetensors"),
-                    state.model.state_dict())
+        with open(os.path.join(work, "dp_ref.json")) as f:
+            ref = json.load(f)
+        ref["tensors"] = load_file(os.path.join(work, "dp_ref.safetensors"))
+    readings = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, fault in (("sound", False), ("local_roll", True)):
+        run = dp_f32_steps(torch, create_model, Trainer, data, dev, fault)
+        if ref is not None:
+            readings[name] = dp_readings(torch, run, ref, dev)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
     return {"view": [index, count], "metrics": metrics, "launches": launches,
-            "routes": dict(attn.route_launches), "step_s": step_s,
-            "allreduce_s": reduce_s,
-            "grad_bytes": sum(p.numel() * 4 for p in state.optimizer.params),
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            "routes": routes, "step_s": step_s, "allreduce_s": reduce_s,
+            "grad_bytes": grad_bytes, "peak_gib": peak, "f32": readings,
+            "f32_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
 
 
 def rank_ep(torch, attn, rank: int, world: int, work: str, data: str,
@@ -2824,6 +2946,9 @@ def rank_main(args: list[str]) -> int:
     mode, rank, world, work, data = (args[0], int(args[1]), int(args[2]),
                                      args[3], args[4])
     dev = torch.device("cuda", 0)
+    # f32 as in the parent process, whose phase 1 turned TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     initialize_distributed(f"file://{work}/rdzv_{mode}", world, rank,
                            backend="gloo", device=dev, timeout=600)
     out = {"dp": rank_dp, "ep": rank_ep}[mode](torch, attn, rank, world,
@@ -2898,8 +3023,31 @@ def phase_nccl_rank(torch, attn, data: str, work: str, layers: int):
 def phase_dp(torch, attn, create_model, Trainer, data: str, work: str,
              dev) -> dict:
     """(b) ViT-L nvit, 2 ranks x 8 on the card against one process of 16:
-    per-step loss and grad norm, and every parameter after the steps."""
-    from safetensors.torch import load_file
+    the bf16 steps timed on both; the f32 check (gradients, losses,
+    parameters) within its limits, which the planted faults exceed."""
+    from safetensors.torch import save_file
+
+    one = dp_f32_steps(torch, create_model, Trainer, data, dev)
+    save_file({**{f"grad/{k}": v.cpu() for k, v in one["grads"].items()},
+               **{f"param/{k}": v.cpu() for k, v in one["params"].items()}},
+              os.path.join(work, "dp_ref.safetensors"))
+    with open(os.path.join(work, "dp_ref.json"), "w") as f:
+        json.dump({"loss": one["loss"], "moved": one["moved"]}, f)
+    del one
+    gc.collect()
+    trainer = vit_l_trainer(torch, create_model, Trainer,
+                            nvit_config(data, global_batch_size=DP_BATCH),
+                            dev)
+    one_s = []
+    for batch in dp_batches(DP_STEPS, DP_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, trainer.stage(batch))
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
     outs = spawn_ranks("dp", 2, work, data)
     for r, o in enumerate(outs):
@@ -2907,51 +3055,36 @@ def phase_dp(torch, attn, create_model, Trainer, data: str, work: str,
                 o["routes"] != {"mma": 2 * DP_K1 * DP_STEPS, "simt": 0}:
             raise AssertionError(f"dp rank {r}: K1/K2 {o['launches']} "
                                  f"routes {o['routes']}")
-        print(f"phase 16(b) ViT-L DP rank {r} of 2 (gloo, batch "
+        print(f"phase 16(b) ViT-L DP rank {r} of 2 (gloo, bf16, batch "
               f"{DP_BATCH // 2} of {DP_BATCH}): K1/K2 launches "
               f"{o['launches']}, step s {o['step_s']}, gradient all-reduce "
               f"s {o['allreduce_s']} ({o['grad_bytes'] / 2 ** 30:.2f} GiB "
-              f"f32), peak memory {o['peak_gib']:.2f} GiB")
+              f"f32), peak memory {o['peak_gib']:.2f} GiB (f32 check "
+              f"{o['f32_peak_gib']:.2f} GiB)")
     if outs[0]["metrics"] != outs[1]["metrics"]:
         raise AssertionError("dp: the ranks fetched different metrics")
-    trainer = vit_l_trainer(torch, create_model, Trainer,
-                            nvit_config(data, global_batch_size=DP_BATCH),
-                            dev)
-    one, one_s = [], []
-    for batch in dp_batches(DP_STEPS, DP_BATCH):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one.append(trainer.train_step(trainer.state, trainer.stage(batch)))
-        torch.cuda.synchronize()
-        one_s.append(time.perf_counter() - t0)
-    ranks = load_file(os.path.join(work, "dp_params.safetensors"))
-    lr = trainer.cfg.optimizer.learning_rate
-    diffs = [(ranks[k].to(dev) - v).abs()
-             for k, v in trainer.state.model.state_dict().items()]
-    dmax = max(d.max().item() for d in diffs)
-    moved = sum(int((d > DP_PARAM_ROUNDING).sum()) for d in diffs) / sum(
-        d.numel() for d in diffs)
-    del diffs
-    del trainer
-    torch.cuda.empty_cache()
-    for s, (a, b) in enumerate(zip(outs[0]["metrics"], one), start=1):
-        rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
-        print(f"phase 16(b) DP step {s}: 2 ranks {a}, one process {b}, "
-              f"relative difference {rel}")
-        if rel["loss"] > DP_LOSS_RTOL or rel["grad_norm"] > DP_NORM_RTOL:
-            raise AssertionError(f"dp step {s}: {rel}")
-    bound = 2 * lr * DP_STEPS + DP_PARAM_ROUNDING
-    print(f"phase 16(b) DP parameters after {DP_STEPS} steps: max |diff| "
-          f"{dmax:.3e} (bound 2 x lr x steps + {DP_PARAM_ROUNDING:g} = "
-          f"{bound:.3e}), share of elements apart by more than "
-          f"{DP_PARAM_ROUNDING:g}: {moved:.3e}; one process at {DP_BATCH}: "
-          f"step s {one_s}")
-    if dmax > bound:
-        raise AssertionError(f"dp parameters {dmax}")
     share = [a / s for a, s in zip(outs[0]["allreduce_s"],
                                    outs[0]["step_s"])]
-    print(f"phase 16(b) DP gradient all-reduce share of a rank's step: "
-          f"{share}")
+    print(f"phase 16(b) DP bf16: one process at {DP_BATCH}: step s {one_s}; "
+          f"gradient all-reduce share of a rank's step: {share}")
+    sound, roll = outs[0]["f32"]["sound"], outs[0]["f32"]["local_roll"]
+    print(f"phase 16(b) DP f32 check against one process at {DP_BATCH} "
+          f"(limits: gradient {DP_GRAD_RTOL:g} relative a leaf, loss "
+          f"{DP_LOSS_RTOL:g} relative, parameters {DP_PARAM_RTOL:g} of "
+          f"their move): "
+          f"2 ranks {sound}; planted faults: no all-reduce, gradient "
+          f"{sound['local_grad_rel']:.3e}; local roll {roll}")
+    if sound["grad_rel"] > DP_GRAD_RTOL or \
+            max(sound["loss_rel"]) > DP_LOSS_RTOL or \
+            sound["param_rel"] > DP_PARAM_RTOL:
+        raise AssertionError(f"dp f32: 2 ranks apart from one process "
+                             f"{sound}")
+    if sound["local_grad_rel"] <= DP_GRAD_RTOL or \
+            roll["grad_rel"] <= DP_GRAD_RTOL or \
+            max(roll["loss_rel"]) <= DP_LOSS_RTOL or \
+            roll["param_rel"] <= DP_PARAM_RTOL:
+        raise AssertionError(f"dp f32: the check did not see a planted "
+                             f"fault: {sound}, {roll}")
     return {f"dp_rank{r}": o["launches"] for r, o in enumerate(outs)}
 
 
@@ -2972,7 +3105,7 @@ def phase_ep(torch, attn, serve, create_model, Trainer, data: str,
             raise AssertionError(f"ep rank {r}: K1/K2 {o['launches']} "
                                  f"routes {o['routes']}")
         print(f"phase 16(b) ResMoE EP rank {r} of 2 (4 experts + gate): "
-              f"K1/K2 launches {o['launches']} for logits + one step, step "
+              f"K1/K2 launches {o['launches']} for one step, step "
               f"{o['step_s']:.3f} s, peak memory {o['peak_gib']:.2f} GiB")
         steps = [f["step"] for f in o["fits"]]
         if steps != [EP_SIGTERM_AFTER, EP_FIT_STEPS] or \

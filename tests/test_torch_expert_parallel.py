@@ -12,7 +12,8 @@ scalar (loss, grad norm, the routing telemetry) and every parameter after
 the steps are held to ``test_torch_train_families.py``'s bounds against
 JAX: 1e-5 relative (1e-6 absolute) for the scalars and logits, 1e-5 for
 the parameters. The replicated gate and root are equal on every rank, and
-each member is held by the ranks of its expert index only.
+each member is held by the ranks of its expert index only: on the others it
+is on the meta device.
 
 The ``resmoe --expert-shards 2`` CLI on two ranks is in
 ``test_torch_train_families.py``.
@@ -181,6 +182,10 @@ def test_expert_parallel_steps_equal_jax(ranks, references, name):
                  if sharding.member_of(k)}
         assert owned == set(sharding.owned_members(members, 2,
                                                    o["expert_index"]))
+        # the other members are on the meta device, not stale copies
+        assert o["released"] == {
+            k for k in spec["init_params"] if sharding.member_of(k)
+            and sharding.member_of(k)[1] not in owned}
     got = merged(mine)
     assert got.keys() == want_params.keys()
     for k in want_params:

@@ -112,8 +112,9 @@ def test_dispatch_combine_kept_mass_match_jax(b, k, e, factor, skewed):
     outs = rng.standard_normal((e, capacity, 3)).astype(np.float32)
     jplan = jmd.make_dispatch_plan(jnp.asarray(top_i), e, capacity)
     plan = md.make_dispatch_plan(torch.from_numpy(top_i), e, capacity)
-    np.testing.assert_array_equal(md.dispatch(plan, _t(x)).numpy(),
-                                  np.asarray(jmd.dispatch(jplan, x)))
+    np.testing.assert_array_equal(
+        torch.stack([md.dispatch(plan, _t(x), i) for i in range(e)]).numpy(),
+        np.asarray(jmd.dispatch(jplan, x)))
     np.testing.assert_allclose(
         md.combine(plan, _t(outs), _t(w), b).numpy(),
         np.asarray(jmd.combine(jplan, outs, w, b)), atol=1e-6, rtol=0)

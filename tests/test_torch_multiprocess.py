@@ -2,11 +2,17 @@
 process on the global batch (the JAX package's single-process step, which
 JAX's own DP tests equate with its sharded step).
 
-- a ViT step with the ``nvit`` augmentation and CutMix/MixUp on: two ranks
-  of 4 rows equal the port's one process at 8 (the augmentation's draws and
-  the mixup roll are the global batch's); with them off, JAX's one-device
-  Trainer at 8. Loss 1e-5, parameters 1e-5 (``tests/test_parallel.py``'s
-  bound), the key bias to 2 x lr a step (its gradient is rounding noise,
+- a ViT step with the ``nvit`` augmentation and CutMix/MixUp on, and one
+  with them off: two ranks of 4 rows equal JAX's one-device Trainer at 8.
+  The two packages draw from different generators (``torch.Generator`` and
+  host numpy in the port, ``jax.random`` keys in JAX), so the JAX step is
+  traced with the numbers the port draws for the global batch: each
+  uniform and Bernoulli draw of JAX's augment and mixup modules returns
+  the port's (``_ReplayAugment``, ``_ReplayMix``), and JAX's own code
+  crops, jitters, erases, rolls the global batch and mixes. A rank that
+  drew for its own rows only, or rolled its rows alone, differs. Loss
+  1e-5, parameters 1e-5 (``tests/test_parallel.py``'s bound), the key bias
+  to 2 x lr a step (its gradient is rounding noise,
   ``test_torch_train.py``);
 - a ResNet-18 step: the BatchNorm moments, the running statistics and the
   parameters of two ranks equal JAX's one-device step within 1e-5;
@@ -22,10 +28,13 @@ Each rank is a child process (``torch_mp_child.py``) with one thread, its
 own ``communicate`` timeout and a 60 s timeout on every collective.
 """
 import dataclasses
+import itertools
 import json
 import os
+from types import SimpleNamespace
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,10 +49,14 @@ from touhouimageclassification_tpu.config import (PRESETS, AugmentConfig,
                                                   ViTConfig)
 from touhouimageclassification_tpu.models.resnet import ResNet as JaxResNet
 from touhouimageclassification_tpu.models.vit import ViT as JaxViT
+from touhouimageclassification_tpu.ops import augment as jaug
+from touhouimageclassification_tpu.ops import mixup as jmix
 from touhouimageclassification_tpu.parallel.mesh import (create_mesh,
                                                          data_sharding)
 from touhouimageclassification_tpu.train.trainer import Trainer as JaxTrainer
 from touhouimageclassification_tpu_torch.models.vit import ViT
+from touhouimageclassification_tpu_torch.ops import augment as aug
+from touhouimageclassification_tpu_torch.ops import mixup
 from touhouimageclassification_tpu_torch.train.trainer import Trainer
 from touhouimageclassification_tpu_torch.utils.convert import from_jax_params
 
@@ -74,17 +87,124 @@ def _batches(size, n=STEPS, seed=0):
              "mask": np.ones(8, bool)} for _ in range(n)]
 
 
-def _jax_run(tmp, cfg, model, batches):
+class _ReplayAugment:
+    """Stands in for ``jax`` in the JAX package's ``ops/augment.py`` while
+    a step is traced: each ``uniform`` and ``bernoulli`` returns the next
+    of the port's per-image U[0, 1) draws, which both packages take in the
+    same order and map to their ranges alike (``lo + (hi - lo) * u``,
+    ``u < p``)."""
+    lax, Array = jax.lax, jax.Array
+
+    def __init__(self, uniforms):
+        self.random = self
+        self._next = iter(uniforms)
+
+    def split(self, key, num=2):
+        return [key] * num
+
+    def _u(self, shape):
+        u = jnp.asarray(next(self._next).numpy())
+        assert u.shape == tuple(shape)
+        return u
+
+    def uniform(self, key, shape=(), dtype=jnp.float32, minval=0.0,
+                maxval=1.0):
+        lo, hi = jnp.asarray(minval, dtype), jnp.asarray(maxval, dtype)
+        return jnp.maximum(lo, self._u(shape) * (hi - lo) + lo)
+
+    def bernoulli(self, key, p=0.5, shape=()):
+        return self._u(shape) < p
+
+    def done(self):
+        return next(self._next, None) is None
+
+
+class _ReplayMix:
+    """The same for ``ops/mixup.py``: the coin, lambda and box centre the
+    port drew on the host (``host``: the values its numpy generator
+    returned, in order). Both branches of JAX's ``lax.cond`` are traced;
+    the coin picks the port's."""
+    lax, Array = jax.lax, jax.Array
+
+    def __init__(self, host):
+        self.random = self
+        self._coin, self._lam, *centre = host
+        self._centre = itertools.cycle(centre or [0.5, 0.5])
+
+    def split(self, key, num=2):
+        return [key] * num
+
+    def bernoulli(self, key, p=0.5, shape=()):
+        return jnp.asarray(self._coin < p)
+
+    def beta(self, key, a, b, shape=(), dtype=jnp.float32):
+        return jnp.asarray(self._lam, dtype)
+
+    def uniform(self, key, shape=(), dtype=jnp.float32, minval=0.0,
+                maxval=1.0):
+        return jnp.asarray(next(self._centre), dtype)
+
+
+class _LoggedRng:
+    """A numpy generator that logs what ``random`` and ``beta`` return."""
+
+    def __init__(self, rng, log):
+        self._rng, self._log = rng, log
+
+    def random(self):
+        self._log.append(self._rng.random())
+        return self._log[-1]
+
+    def beta(self, a, b):
+        self._log.append(self._rng.beta(a, b))
+        return self._log[-1]
+
+
+def _port_draws(cfg, model_cfg, batches):
+    """What the port's one-process Trainer draws for each step's global
+    batch: (the augmentation's per-image uniforms in order, the CutMix/MixUp
+    host draws)."""
+    one = Trainer(cfg, model=ViT(model_cfg, "float32", "cpu",
+                                 param_dtype="float32"), device="cpu")
+    rand, sample = aug._rand, mixup.sample_cutmix_or_mixup
+    draws = []
+    for step, batch in enumerate(batches):
+        uniforms, host = [], []
+
+        def logged_rand(*args, uniforms=uniforms):
+            uniforms.append(rand(*args))
+            return uniforms[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(aug, "_rand", logged_rand)
+            mp.setattr(mixup, "sample_cutmix_or_mixup",
+                       lambda rng, *a, host=host: sample(
+                           _LoggedRng(rng, host), *a))
+            one._inputs(SimpleNamespace(step=step), one.stage(batch))
+        draws.append((uniforms, host))
+    return draws
+
+
+def _jax_run(tmp, cfg, model, batches, draws=None):
     """JAX's one-device Trainer: (initial variables, per-step metrics,
-    final variables)."""
+    final variables). With ``draws`` (``_port_draws``), each step is traced
+    anew with JAX's random draws replaced by the port's."""
     mesh = create_mesh(num_data=1, devices=jax.devices()[:1])
     jt = JaxTrainer(cfg, model=model, mesh=mesh)
     state = jt.init_state(4)
     init = jax.device_get({"params": state.params, **state.model_state})
     step = jt._make_train_step()
     metrics = []
-    for batch in batches:
-        state, m = step(state, jax.device_put(batch, data_sharding(mesh)))
+    for i, batch in enumerate(batches):
+        with pytest.MonkeyPatch.context() as mp:
+            if draws is not None:
+                replay = _ReplayAugment(draws[i][0])
+                mp.setattr(jaug, "jax", replay)
+                mp.setattr(jmix, "jax", _ReplayMix(draws[i][1]))
+                step = jt._make_train_step()
+            state, m = step(state, jax.device_put(batch, data_sharding(mesh)))
+            if draws is not None:
+                assert replay.done(), "JAX drew fewer numbers than the port"
         metrics.append({k: float(v) for k, v in m.items()})
     return init, metrics, jax.device_get({"params": state.params,
                                           **state.model_state})
@@ -120,25 +240,19 @@ def vit_runs(tmp_path_factory):
     one-process references)."""
     tmp = tmp_path_factory.mktemp("vit_dp")
     pcfg = port_config(TINY)
-    plain = _cfg(tmp)
-    jinit, jmetrics, jfinal = _jax_run(
-        tmp, plain, JaxViT(TINY, compute_dtype="float32"), _batches(16))
-    init = from_jax_params(jinit, pcfg)
-    aug_cfg = port_config(_cfg(tmp, augment=True))
+    plain, augmented = _cfg(tmp), _cfg(tmp, augment=True)
     aug_batches = _batches(20, seed=1)
-    one = Trainer(aug_cfg, model=ViT(pcfg, "float32", "cpu",
-                                     param_dtype="float32"),
-                  device="cpu", init_params=init)
-    state = one.init_state(4)
-    one_metrics = [one.train_step(state, one.stage(b)) for b in aug_batches]
-    one_final = {k: v.clone() for k, v in state.model.state_dict().items()}
-    runs = [dict(family="ViT", model_cfg=pcfg, cfg=aug_cfg, init_params=init,
-                 batches=aug_batches),
-            dict(family="ViT", model_cfg=pcfg, cfg=port_config(plain),
-                 init_params=init, batches=_batches(16))]
+    draws = _port_draws(port_config(augmented), pcfg, aug_batches)
+    refs, runs = [], []
+    for cfg, batches, replay in ((augmented, aug_batches, draws),
+                                 (plain, _batches(16), None)):
+        jinit, jmetrics, jfinal = _jax_run(
+            tmp, cfg, JaxViT(TINY, compute_dtype="float32"), batches, replay)
+        init = from_jax_params(jinit, pcfg)
+        refs.append((jmetrics, from_jax_params(jfinal, pcfg)))
+        runs.append(dict(family="ViT", model_cfg=pcfg, cfg=port_config(cfg),
+                         init_params=init, batches=batches))
     outs = spawn(tmp / "ranks", "steps", 2, {"runs": runs})
-    refs = [(one_metrics, one_final),
-            (jmetrics, from_jax_params(jfinal, pcfg))]
     return outs, refs
 
 

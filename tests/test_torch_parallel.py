@@ -136,6 +136,41 @@ def test_expert_rule_is_jaxs(members, shards):
         1 // (members // shards)
 
 
+@pytest.mark.parametrize("members,shards,index", [(4, 2, 0), (4, 2, 1),
+                                                  (3, 2, 1), (4, 1, 0)])
+def test_release_unowned_frees_the_other_ranks_members(members, shards,
+                                                       index):
+    """An expert rank keeps its own members and the gate; the others go to
+    the meta device (no memory, and a forward through one raises); a stack
+    the shards do not divide is kept whole."""
+    from touhouimageclassification_tpu_torch.config import (MoEConfig,
+                                                            ViTConfig)
+    from touhouimageclassification_tpu_torch.models.resmoe import \
+        MoEClassifier
+
+    vit = ViTConfig(image_size=16, patch_size=8, hidden_size=16,
+                    num_layers=1, num_heads=2, mlp_dim=32, num_classes=4)
+    model = MoEClassifier(MoEConfig(num_experts=members, top_k=1,
+                                    num_classes=4, expert_vit=vit),
+                          "float32", "cpu", seed=0)
+    names = set(model.state_dict())
+    released = sharding.release_unowned(model, shards, index)
+    owned = set(sharding.owned_members(members, shards, index))
+    want = {n for n in names if sharding.member_of(n)
+            and sharding.member_of(n)[1] not in owned}
+    assert released == want
+    assert {n for n, t in model.state_dict().items() if t.is_meta} == want
+    assert sharding.release_unowned(model, shards, index) == want
+    x = torch.zeros(1, 16, 16, 3)
+    for i in range(members):
+        if i in owned:
+            assert model.experts[i](x).shape == (1, 4)
+        else:
+            with pytest.raises((RuntimeError, NotImplementedError)):
+                model.experts[i](x)
+    assert not any(t.is_meta for t in model.gate.state_dict().values())
+
+
 def test_member_names_follow_the_stacks():
     assert sharding.member_of("experts.3.layer.0.mlp.fc1.weight") == \
         ("experts", 3)

@@ -95,6 +95,8 @@ def _one_run(spec):
                for b in spec["batches"]]
     return {"metrics": metrics, "logits": logits, "view": view,
             "held": _held(trainer), "step": state.step,
+            "released": {n for n, t in state.model.state_dict().items()
+                         if t.is_meta},
             "data_index": trainer.mesh.data_index,
             "expert_index": trainer.mesh.expert_index}
 

@@ -136,10 +136,10 @@ class MoEClassifier(nn.Module):
         if cfg.dispatch_level == "feature":
             def run(i):
                 e = self.experts[i]
-                return e.encode(e.embed(x)[plan.gather_idx[i]])
+                return e.encode(md.dispatch(plan, e.embed(x), i))
         else:
             def run(i):                                  # (C, H, W, 3) in
-                return self.experts[i](x[plan.gather_idx[i]])
+                return self.experts[i](md.dispatch(plan, x, i))
         expert_logits = stack_members(run, cfg.num_experts)
         combined = md.combine(plan, expert_logits, gate_w, b)
         return combined, gate_for_loss, top_i

@@ -99,7 +99,8 @@ class TreeViT(nn.Module):
                                    cfg.num_categories, cfg.capacity_factor)
         plan = md.make_shard_plan(top_i, cfg.num_categories, capacity)
         son_logits = stack_members(
-            lambda i: self.sons[i](x[plan.gather_idx[i]]), cfg.num_categories)
+            lambda i: self.sons[i](md.dispatch(plan, x, i)),
+            cfg.num_categories)
         combined = md.combine(plan, son_logits, smoothed, b)
         kept = md.kept_mass(plan, smoothed, b)
         return combined / kept.clamp(min=1e-9)[:, None], choice, kept

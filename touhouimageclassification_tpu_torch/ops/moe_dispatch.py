@@ -98,9 +98,11 @@ def make_shard_plan(top_k_idx: torch.Tensor, num_experts: int,
     return make_dispatch_plan(top_k_idx, num_experts, min(capacity, b), keep)
 
 
-def dispatch(plan: DispatchPlan, x: torch.Tensor) -> torch.Tensor:
-    """Per-expert inputs: x (B, ...) -> (E, C, ...)."""
-    return x[plan.gather_idx]
+def dispatch(plan: DispatchPlan, x: torch.Tensor, expert: int) -> torch.Tensor:
+    """Expert ``expert``'s inputs: x (B, ...) -> (C, ...), row c the sample
+    in its slot c (sample 0 where the slot is empty). One expert at a
+    time, so a rank gathers only its own experts' rows."""
+    return x[plan.gather_idx[expert]]
 
 
 def kept_mass(plan: DispatchPlan, weights: torch.Tensor,

@@ -7,7 +7,9 @@ over the expert axis with the JAX package's rule: a stack of E members is
 split when the number of shards S divides E, member i then belonging to
 expert rank ``i // (E / S)``; otherwise the stack is replicated. The rule
 reads a parameter's name, so the optimizer state, whose entries are keyed
-by parameter, follows it too.
+by parameter, follows it too. A rank keeps no copy of the members it does
+not hold: :func:`release_unowned` moves them to the meta device, so their
+memory is freed and a read of one fails instead of seeing stale weights.
 """
 from __future__ import annotations
 
@@ -53,3 +55,21 @@ def stack_sizes(model) -> dict[str, int]:
     ``model``."""
     return {key: len(getattr(model, key)) for key in EXPERT_STACK_KEYS
             if hasattr(model, key)}
+
+
+def release_unowned(model, shards: int, expert_index: int) -> set[str]:
+    """Move the stack members that expert rank ``expert_index`` of
+    ``shards`` does not hold to the meta device; returns their state-dict
+    names (those of members released before included)."""
+    released = set()
+    for key in EXPERT_STACK_KEYS:
+        stack = getattr(model, key, None)
+        if stack is None:
+            continue
+        owned = owned_members(len(stack), shards, expert_index)
+        for i, member in enumerate(stack):
+            if i not in owned:
+                member.to("meta")
+                released.update(f"{key}.{i}.{name}"
+                                for name in member.state_dict())
+    return released

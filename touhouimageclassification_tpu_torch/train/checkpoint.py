@@ -163,7 +163,8 @@ def load_state(state, tensors: dict[str, torch.Tensor], meta: dict):
     if missing:
         raise KeyError(f"checkpoint lacks parameters {missing[:5]}")
     for name, t in model_sd.items():
-        t.copy_(tensors[name])
+        if not t.is_meta:   # a member another expert rank holds
+            t.copy_(tensors[name])
     names = {id(p): n for n, p in state.model.named_parameters()}
     per_param: dict[int, dict[str, torch.Tensor]] = {}
     for i, p in enumerate(opt.params):
@@ -319,9 +320,11 @@ class CheckpointManager:
         os.rename(tmp, final)
         self._retain()
 
-    def restore(self, state, epoch: int | None = None):
-        """Load step ``epoch`` (default: the latest) into ``state`` in
-        place; returns it."""
+    def read(self, epoch: int | None = None
+             ) -> tuple[dict[str, torch.Tensor], dict]:
+        """The host tensors of step ``epoch`` (default: the latest), from
+        every state file of the save (each expert rank's members), and its
+        meta."""
         epoch = epoch if epoch is not None else self.latest_epoch()
         if epoch is None:
             raise FileNotFoundError(f"No checkpoint under {self.directory}")
@@ -332,7 +335,12 @@ class CheckpointManager:
         for name in sorted(os.listdir(path)):
             if name.startswith("state") and name.endswith(".safetensors"):
                 tensors.update(load_file(os.path.join(path, name)))
-        return load_state(state, tensors, meta)
+        return tensors, meta
+
+    def restore(self, state, epoch: int | None = None):
+        """Load step ``epoch`` (default: the latest) into ``state`` in
+        place; returns it."""
+        return load_state(state, *self.read(epoch))
 
     def delete(self, step: int) -> None:
         shutil.rmtree(self._path(step))

@@ -25,7 +25,7 @@ from ..models import model_config_key
 from ..parallel.dist import initialize_distributed, world
 from ..utils.mean_std import get_mean_std
 from .checkpoint import (SERVING_META, SERVING_PARAMS, CheckpointManager,
-                         save_params)
+                         load_state, save_params)
 from .trainer import Trainer
 
 
@@ -101,15 +101,17 @@ def export_for_serving(cfg: TrainConfig, trainer: Trainer, out_path: str,
     the best epoch by the monitored metric, or the latest, unless ``epoch``
     is given. The port's serve loads the directory."""
     ckpt = CheckpointManager(cfg.checkpoint, cfg.train_id)
-    state = trainer.init_state()
     epoch = epoch if epoch is not None else (ckpt.best_epoch()
                                              or ckpt.latest_epoch())
-    ckpt.restore(state, epoch)
+    tensors, saved = ckpt.read(epoch)
+    load_state(trainer.init_state(), tensors, saved)
     if world()[0] != 0:
         return out_path  # rank 0 writes the export of a multi-process run
     os.makedirs(out_path, exist_ok=True)
+    # from the save's files: under expert parallelism they hold the members
+    # the other ranks trained
     save_params(os.path.join(out_path, SERVING_PARAMS),
-                state.model.state_dict())
+                {k: tensors[k] for k in trainer.model.state_dict()})
     meta = {
         "model_type": cfg.model_type,
         "epoch": int(epoch),

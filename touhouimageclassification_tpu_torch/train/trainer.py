@@ -49,8 +49,8 @@ batch's (``parallel/collectives.py``), and after the backward the
 gradients are averaged over the data group in flat buckets, so the
 gradient norm, the NaN guard's verdict and the fetched loss are the same on
 every rank. The mixtures' ``experts`` / ``sons`` are split over the expert
-axis (``parallel/sharding.py``): a rank runs and updates only its own
-members and the replicated rest. Rank 0 alone writes ``metrics.jsonl``;
+axis (``parallel/sharding.py``): a rank holds, runs and updates only its
+own members and the replicated rest; the others are on the meta device. Rank 0 alone writes ``metrics.jsonl``;
 every step the ranks agree on a SIGTERM any of them received
 (``_agree_preempted``), so all stop at the same step; each checkpoint is
 written by the ranks that hold its parts (``train/checkpoint.py``).
@@ -168,7 +168,11 @@ class Trainer:
             model = create_model(cfg.model_type, compute_dtype=cfg.compute_dtype,
                                  param_dtype="float32", device=self.device,
                                  seed=cfg.seed)
-        self.model = model.to(self.device)
+        # a model that an earlier Trainer of this rank released members of
+        # is on its device already (a meta tensor cannot be moved)
+        if not any(p.is_meta for p in model.parameters()):
+            model = model.to(self.device)
+        self.model = model
         self.task = task or ClassificationTask()
         model_cfg = self.model.cfg
         # ResMoE and TreeViT carry their members' ViT config inside theirs
@@ -199,6 +203,8 @@ class Trainer:
         sizes = sharding.stack_sizes(self.model)
         self._owner = {name: sharding.owner(name, sizes, self.mesh.num_expert)
                        for name, _ in self.model.named_parameters()}
+        self._released = sharding.release_unowned(
+            self.model, self.mesh.num_expert, self.mesh.expert_index)
 
     # ------------------------------------------------------------------
     # state
@@ -220,7 +226,14 @@ class Trainer:
 
     def init_state(self, steps_per_epoch: int = 1) -> TrainState:
         if self._init_params is not None:
-            self.model.load_state_dict(self._init_params)
+            # strict but for the members this rank released
+            keys = self.model.load_state_dict({
+                k: v for k, v in self._init_params.items()
+                if k not in self._released}, strict=False)
+            missing = set(keys.missing_keys) - self._released
+            if missing or keys.unexpected_keys:
+                raise KeyError(f"init_params: missing {sorted(missing)[:5]}, "
+                               f"unexpected {keys.unexpected_keys[:5]}")
         opt_cfg = self.cfg.optimizer
         if opt_cfg.schedule == "warmup_linear" and opt_cfg.total_steps <= 0:
             # wire the decay horizon when the caller didn't: without it the
