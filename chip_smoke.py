@@ -130,6 +130,23 @@ fatal on failure:
     both, resumed to the end of the epoch; the expert-sharded checkpoint
     restored in one process and served). Per-rank K1/K2 counts, step times
     and peak memory are printed and the counts join the kernels line.
+17. the weight-loading route and the augmentation grids, each step's
+    seconds and bytes printed and K1 counted on each serve: (a) on phase
+    11's fit, before its checkpoint is deleted, ``python -m
+    ...utils.extract_ckpt`` on the epoch directory (the extracted
+    ``params.safetensors`` bit-equal to the ``--transform`` export's,
+    tensor for tensor), then serve ``--model vit-large --weights
+    <extracted>`` meta-less (K1 24 a forward), its judge CSV equal to a
+    Predictor's on the export's parameters with the dataset's mean and
+    std; (b) after phase 11, ``utils.convert``'s CLI and ``extract_ckpt
+    --model vit-large`` on phase 6's random ViT-L ``.pth``, each served
+    with ``--model vit-large``: the judge CSV equal to phase 6's from the
+    ``.pth`` row for row; (d) then ``analysis.aug`` at 224x224 on the card
+    (PNGs of 1, 8, 8 and 16 tiles, the recipes on CUDA tensors); (c) at the
+    end of phase 16, ``extract_ckpt`` on the expert-sharded ResMoE save,
+    served meta-less with ``--model resmoe`` in one process (K1 108 a
+    forward), its logits on phase 16's batch within ``EP_LOGIT_ATOL`` of
+    the restored trainer's.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -1202,9 +1219,10 @@ def fit_records(log_dir: str, train_id: str) -> list[dict]:
 
 def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
               work: str, layers: int, dev, staged_rate: float):
-    """The training loop on the card (see the module docstring, phase 11).
-    Returns the K1 and K2 launches of the ``ntrain`` fit and the path of its
-    ViT-L serving export."""
+    """The training loop on the card (see the module docstring, phase 11),
+    with phase 17(a) on its checkpoint. Returns the K1 and K2 launches of
+    the ``ntrain`` fit, the path of its ViT-L serving export and K1's
+    launches serving the extracted params."""
     from touhouimageclassification_tpu_torch.config import (PRESETS,
                                                             CheckpointConfig)
     from touhouimageclassification_tpu_torch.data import (get_class_to_idx,
@@ -1296,6 +1314,8 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
     ntrain.main([*argv, "--transform", export])
     export_secs = time.perf_counter() - t0
     export_bytes = dir_bytes(export)
+    extracted = phase_extract_vit(torch, os.path.join(ckpt.directory, "1"),
+                                  export, work)
     shutil.rmtree("checkpoint")
     print(f"--test: {test_acc}; --transform: {export_bytes} bytes in "
           f"{export_secs:.2f} s (model build, restore and write)")
@@ -1322,6 +1342,9 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
           "to a Predictor on the restored model (the export stays for phase "
           "12's judge)")
     del model, pred, restored, state
+    extracted_k1 = phase_serve_extracted_vit(attn, serve, create_model,
+                                             extracted, export, data, work,
+                                             layers, dev)
     os.chdir(cwd)
 
     # the profiled window, through Trainer.fit
@@ -1383,7 +1406,7 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
             or resumed.state.step != final_step or diff != 0.0):
         raise AssertionError("the resumed run is not the uninterrupted one")
     shutil.rmtree(rcfg.checkpoint.directory)
-    return launches, export
+    return launches, export, {"serve_extracted_vit_l": extracted_k1}
 
 
 def calibrate_bn(torch, model, images) -> None:
@@ -3094,7 +3117,8 @@ def phase_ep(torch, attn, serve, create_model, Trainer, data: str,
     with 4 experts a rank on 2 ranks: logits and one step against one
     process; the SIGTERM to rank 1 alone stops both ranks at step 3, and
     the resumed run ends the epoch; one process restores the
-    expert-sharded checkpoint, equals the ranks' logits and serves."""
+    expert-sharded checkpoint, equals the ranks' logits and serves; then
+    phase 17(c) on that save."""
     from touhouimageclassification_tpu_torch.train.checkpoint import \
         CheckpointManager
 
@@ -3153,9 +3177,13 @@ def phase_ep(torch, attn, serve, create_model, Trainer, data: str,
     if trainer.state.step != EP_FIT_STEPS or drest > EP_LOGIT_ATOL or \
             served.tolist() != restored.argmax(-1).cpu().tolist():
         raise AssertionError("ep restore and serve")
-    del trainer, pred
+    del pred
+    extracted_k1 = phase_extract_resmoe(torch, attn, serve, trainer, saved,
+                                        batch, restored, data, work, dev)
+    del trainer
     torch.cuda.empty_cache()
-    return {f"ep_rank{r}": o["launches"] for r, o in enumerate(outs)}
+    return {**{f"ep_rank{r}": o["launches"] for r, o in enumerate(outs)},
+            "serve_extracted_resmoe": (extracted_k1, 0)}
 
 
 def phase_multi_gpu(torch, attn, serve, create_model, Trainer, data: str,
@@ -3171,6 +3199,228 @@ def phase_multi_gpu(torch, attn, serve, create_model, Trainer, data: str,
     launches.update(phase_ep(torch, attn, serve, create_model, Trainer, data,
                              work, dev))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the weight-loading route (extract_ckpt, convert, the meta-less
+# serve of bare params) and the augmentation grids
+# ---------------------------------------------------------------------------
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` hold the same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def judge_rows(path: str) -> list[list[str]]:
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def serve_judge(attn, serve, model_flag: str, weights: str, data: str,
+                out_csv: str, k1_per_forward: int, what: str
+                ) -> tuple[int, float]:
+    """``serve --full`` (no canvas cache) from ``weights`` with K1 counted
+    from 0: ``k1_per_forward`` launches a judge bucket, all on ``mma``.
+    Returns K1's launches and the seconds."""
+    forwards = -(-NUM_CLASSES * PER_CLASS // serve.BUCKETS[-1])
+    zero_counts(attn)
+    t0 = time.perf_counter()
+    serve.main(["--model", model_flag, "--weights", weights, "--image", data,
+                "--data-dir", data, "--output", out_csv, "--full",
+                "--canvas-cache", "off"])
+    secs = time.perf_counter() - t0
+    k1, _ = read_counts(attn, f"{what}: serve --model {model_flag} --full, "
+                        f"{forwards} forwards", (k1_per_forward * forwards, 0))
+    return k1, secs
+
+
+def phase_extract_vit(torch, epoch_dir: str, export: str, work: str) -> str:
+    """Phase 17(a), on phase 11's fit before its checkpoint is deleted:
+    ``python -m ...utils.extract_ckpt`` on the epoch directory; the
+    extracted ``params.safetensors`` must equal the ``--transform``
+    export's, tensor for tensor, bit for bit. Returns the extracted
+    directory."""
+    from safetensors.torch import load_file
+
+    out = os.path.join(work, "extracted_vit_l")
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m",
+         "touhouimageclassification_tpu_torch.utils.extract_ckpt", "--input",
+         epoch_dir, "--output", out], cwd=ROOT, env=child_env(),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if done.returncode or not done.stdout.startswith("Extracted to"):
+        raise AssertionError(f"extract_ckpt exited {done.returncode}:\n"
+                             f"{done.stdout[-2000:]}\n{done.stderr[-4000:]}")
+    got = load_file(os.path.join(out, "params.safetensors"))
+    want = load_file(os.path.join(export, "params.safetensors"))
+    if got.keys() != want.keys() or not all(same_bits(torch, got[k], want[k])
+                                            for k in want):
+        raise AssertionError("the extracted params differ from the export's")
+    print(f"phase 17(a) extract_ckpt (python -m, CPU) on the ViT-L fit's "
+          f"epoch directory ({dir_bytes(epoch_dir)} bytes: params, AdamW "
+          f"moments, meta): {dir_bytes(out)} bytes in {secs:.2f} s; "
+          f"{len(want)} tensors bit-equal to the --transform export's "
+          "params.safetensors")
+    return out
+
+
+def phase_serve_extracted_vit(attn, serve, create_model, extracted: str,
+                              export: str, data: str, work: str, layers: int,
+                              dev) -> int:
+    """Phase 17(a), serve: the extracted ViT-L params meta-less (``--model
+    vit-large``, the dataset's class map, mean and std), K1 24 a forward;
+    its judge CSV (classes and confidences) must equal a Predictor's on the
+    export's parameters with the dataset's mean and std. Returns K1's
+    launches."""
+    from safetensors.torch import load_file
+
+    from touhouimageclassification_tpu_torch.data import get_class_to_idx
+    from touhouimageclassification_tpu_torch.utils.mean_std import \
+        get_mean_std
+
+    out_csv = os.path.join(work, "judge_extracted_vit_l.csv")
+    k1, secs = serve_judge(attn, serve, "vit-large", extracted, data, out_csv,
+                           layers, "phase 17(a)")
+    mean, std = get_mean_std(data, (224, 224))
+    model = create_model("vit-large", num_classes=NUM_CLASSES, device=dev)
+    model.load_state_dict(load_file(os.path.join(export,
+                                                 "params.safetensors")))
+    pred = serve.Predictor(model=model, class_to_idx=get_class_to_idx(data),
+                           image_size=(224, 224), mean=mean, std=std,
+                           device=dev)
+    mem_csv = os.path.join(work, "judge_export_dataset_stats.csv")
+    serve.full_judge(pred, data, mem_csv, progress=False, canvas_cache="off")
+    rows = judge_rows(out_csv)
+    if rows != judge_rows(mem_csv) or len(rows) != NUM_CLASSES * PER_CLASS + 1:
+        raise AssertionError("serve from the extracted params disagrees with "
+                             "a Predictor on the export's")
+    print(f"phase 17(a) serve --model vit-large --weights <extracted> --full: "
+          f"{len(rows) - 1} rows in {secs:.2f} s (model build, load, judge), "
+          "classes and confidences equal to a Predictor on the export's "
+          "parameters with the dataset's mean and std")
+    del model, pred
+    return k1
+
+
+def phase_convert_vit(attn, serve, pth: str, data: str, work: str,
+                      layers: int) -> dict:
+    """Phase 17(b): ``utils.convert``'s CLI and ``utils.extract_ckpt
+    --model vit-large`` on phase 6's random ViT-L ``.pth``, each output
+    served meta-less with ``--model vit-large``: the judge CSV must equal
+    phase 6's from the ``.pth`` itself, row for row (the same weights,
+    statistics and kernels). Returns K1's launches by path."""
+    from touhouimageclassification_tpu_torch.utils import convert, extract_ckpt
+
+    want = judge_rows(os.path.join(work, "judge_cache_off.csv"))
+    launches = {}
+    for name, cli in (("convert", convert.main),
+                      ("extract_pth", extract_ckpt.main)):
+        out = os.path.join(work, f"{name}_vit_l")
+        t0 = time.perf_counter()
+        cli(["--input", pth, "--model", "vit-large", "--num-classes",
+             str(NUM_CLASSES), "--output", out])
+        secs = time.perf_counter() - t0
+        if os.listdir(out) != ["params.safetensors"]:
+            raise AssertionError(f"{name} wrote {os.listdir(out)}")
+        out_csv = os.path.join(work, f"judge_{name}_vit_l.csv")
+        k1, serve_secs = serve_judge(attn, serve, "vit-large", out, data,
+                                     out_csv, layers, f"phase 17(b) {name}")
+        if judge_rows(out_csv) != want:
+            raise AssertionError(f"serve from the {name} output disagrees "
+                                 "with serve from the .pth")
+        launches[f"serve_{name}"] = k1
+        print(f"phase 17(b) {name} (CPU) of the ViT-L .pth "
+              f"({os.path.getsize(pth)} bytes): {dir_bytes(out)} bytes in "
+              f"{secs:.2f} s; serve --full from it {serve_secs:.2f} s, judge "
+              "CSV equal to the .pth's row for row")
+    return launches
+
+
+def phase_extract_resmoe(torch, attn, serve, trainer, saved: str, batch,
+                         restored, data: str, work: str, dev) -> int:
+    """Phase 17(c), on phase 16's expert-sharded ResMoE save: extract it,
+    serve it meta-less (``--model resmoe``, eight experts from the tensor
+    names) in one process, K1 108 a forward; on phase 16's batch and the
+    trainer's mean and std its logits must equal the restored trainer's
+    within ``EP_LOGIT_ATOL``. Returns K1's launches."""
+    from touhouimageclassification_tpu_torch.utils import extract_ckpt
+
+    out = os.path.join(work, "extracted_resmoe")
+    t0 = time.perf_counter()
+    extract_ckpt.main(["--input", saved, "--output", out])
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = serve.init(modelt="resmoe", weights=out, data_dir=data, device=dev)
+    init_secs = time.perf_counter() - t0
+    if len(pred.model.experts) != 8:
+        raise AssertionError(f"{len(pred.model.experts)} experts served")
+    staged = trainer.stage(batch)
+    zero_counts(attn)
+    with torch.no_grad():
+        images = trainer.eval_transform(staged["image"].float() / 255.0)
+        logits = pred.model(images)[0].float()
+    served, conf = pred.predict_array(batch["image"])
+    k1, _ = read_counts(attn, "phase 17(c) served ResMoE, 2 forwards",
+                        (2 * MIX_K1, 0))
+    diff = (logits - restored).abs().max().item()
+    print(f"phase 17(c) extract_ckpt of the expert-sharded save "
+          f"({dir_bytes(saved)} bytes, {sorted(os.listdir(saved))}): "
+          f"{dir_bytes(out)} bytes in {secs:.2f} s; serve.init --model "
+          f"resmoe {init_secs:.2f} s; logits max |diff| to the restored "
+          f"trainer's {diff:.3e}; served classes (dataset statistics) "
+          f"{served.tolist()}, confidences "
+          f"{[round(float(c), 4) for c in conf]}")
+    if diff > EP_LOGIT_ATOL or not np.isfinite(conf).all():
+        raise AssertionError("the served extracted ResMoE disagrees")
+    del pred
+    return k1
+
+
+def phase_aug(torch, data: str, work: str, dev) -> None:
+    """Phase 17(d): ``analysis.aug.visualize`` at 224x224 on one image of
+    the fixture, on the card: four PNGs of 1, 8, 8 and 16 tiles, every
+    recipe's input, generator and output on CUDA."""
+    from PIL import Image
+
+    from touhouimageclassification_tpu_torch.analysis import aug
+
+    devices = set()
+    build = aug.build_augment_fn
+
+    def recorded(cfg, out_size):
+        fn = build(cfg, out_size)
+
+        def run(gen, images):
+            out = fn(gen, images)
+            devices.update((gen.device.type, images.device.type,
+                            out.device.type))
+            return out
+        return run
+
+    aug.build_augment_fn = recorded
+    t0 = time.perf_counter()
+    written = aug.visualize(os.path.join(data, "class_000", "0.jpg"),
+                            os.path.join(work, "show_augmentation"),
+                            device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    aug.build_augment_fn = build
+    sizes = []
+    for path in written:
+        with Image.open(path) as im:
+            sizes.append(im.size)
+    # the original is the 256x256 base; recipe tiles are 224x224 in grids
+    # of 3 x 3 (8 tiles) and 4 x 4 (16)
+    want = [(256, 256)] + [(224 * c, 224 * c) for c in (3, 3, 4)]
+    print(f"phase 17(d) analysis.aug on the card: {written} sizes {sizes} "
+          f"({sum(os.path.getsize(p) for p in written)} bytes), recipes on "
+          f"{sorted(devices)}, {secs:.2f} s")
+    if sizes != want or devices != {"cuda"}:
+        raise AssertionError("augmentation grids")
 
 
 def profile(torch, fn, label: str):
@@ -3265,9 +3515,12 @@ def main() -> int:
         flash_train, rates = phase_train_throughput(
             torch, attn, pe, create_model, Trainer, state_dict, data, layers,
             dev)
-        fit_launches, vit_export = phase_fit(
+        fit_launches, vit_export, loading_launches = phase_fit(
             torch, attn, create_model, serve, data, pth, work, layers, dev,
             rates[("fused", 8)])
+        loading_launches.update(phase_convert_vit(attn, serve, pth, data,
+                                                  work, layers))
+        phase_aug(torch, data, work, dev)
         pipeline_launches = phase_resnet_pipeline(
             torch, attn, serve, create_model, Trainer, data, work, vit_export,
             mean_std["mean"], mean_std["std"], layers, dev)
@@ -3290,6 +3543,7 @@ def main() -> int:
          "attention.py:455", {"serve": serve_launches,
                               "train": train_launches[0],
                               "fit": fit_launches[0],
+                              **loading_launches,
                               **pipeline_launches,
                               **{path: k1 for path, (k1, _) in
                                  mix_launches.items()},
@@ -3301,7 +3555,7 @@ def main() -> int:
                               **{path: k2 for path, (_, k2) in
                                  mix_launches.items() if k2},
                               **{path: k2 for path, (_, k2) in
-                                 multi_launches.items()}}, "fit"),
+                                 multi_launches.items() if k2}}, "fit"),
         ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),

@@ -3,18 +3,24 @@ originals give.
 
 The port imports nothing of the JAX package: it keeps its own ``config.py``,
 ``data/{folder,loader,native_loader,canvas_cache}.py``,
-``utils/mean_std.py``, ``utils/logging.py``, ``utils/httpkit.py`` and the HF
-and torchvision checkpoint converters of ``utils/convert.py``. Here both sides run on the same inputs and must
-agree exactly: every preset and model config field for field, the
-ImageFolder scan, the seeded split, the loader's batches, the dataset
-statistics, the converted parameter tree and the run logger.
+``utils/mean_std.py``, ``utils/logging.py``, ``utils/httpkit.py``,
+``utils/check_sha.py``, ``utils/sample_dataset.py`` and the HF and
+torchvision checkpoint converters of ``utils/convert.py``. Here both sides
+run on the same inputs and must agree exactly: every preset and model
+config field for field, the ImageFolder scan, the seeded split, the
+loader's batches, the dataset statistics, the converted parameter tree, the
+run logger, the duplicate check, the sampled files and reference images,
+and what each of the two small CLIs prints.
 
 :func:`port_config` is the one bridge the other ``test_torch_*`` files use to
 hand a JAX-package config to the port: the port's dataclass of the same name,
 built from the same fields.
 """
 import dataclasses
+import os
+import runpy
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -27,18 +33,22 @@ from fixtures import make_image_folder
 from touhouimageclassification_tpu.data import canvas_cache as jcache
 from touhouimageclassification_tpu.data import folder as jfolder
 from touhouimageclassification_tpu.data import loader as jloader
+from touhouimageclassification_tpu.utils import check_sha as jsha
 from touhouimageclassification_tpu.utils import convert as jconvert
 from touhouimageclassification_tpu.utils import httpkit as jhttpkit
 from touhouimageclassification_tpu.utils import logging as jlogging
 from touhouimageclassification_tpu.utils import mean_std as jstats
+from touhouimageclassification_tpu.utils import sample_dataset as jsample
 from touhouimageclassification_tpu_torch.data import canvas_cache as pcache
 from touhouimageclassification_tpu_torch.data import folder as pfolder
 from touhouimageclassification_tpu_torch.data import image_loader
 from touhouimageclassification_tpu_torch.data import loader as ploader
+from touhouimageclassification_tpu_torch.utils import check_sha as psha
 from touhouimageclassification_tpu_torch.utils import convert as pconvert
 from touhouimageclassification_tpu_torch.utils import httpkit as phttpkit
 from touhouimageclassification_tpu_torch.utils import logging as plogging
 from touhouimageclassification_tpu_torch.utils import mean_std as pstats
+from touhouimageclassification_tpu_torch.utils import sample_dataset as psample
 
 torch.set_num_threads(1)
 
@@ -305,3 +315,104 @@ def test_httpkit_equals_jax():
     assert parsed[0] == parsed[1]
     assert parsed[0] == ("EN", [("files[]", "a.jpg", b"xyz")],
                          {"session_uid": "u1"}, {"a": ["1"]})
+
+
+# ---------------------------------------------------------------------------
+# the small utilities: check_sha and sample_dataset
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def sha_folders(tmp_path):
+    """A train folder and a test folder holding two copies of one train
+    file, one of another, and two files of their own."""
+    train, test = tmp_path / "train" / "a", tmp_path / "test" / "a"
+    train.mkdir(parents=True)
+    (test / "b").mkdir(parents=True)
+    for name, data in (("x.jpg", b"x"), ("y.jpg", b"y"), ("z.jpg", b"z")):
+        (train / name).write_bytes(data)
+    for name, data in (("x1.jpg", b"x"), ("b/x2.jpg", b"x"), ("y.jpg", b"y"),
+                       ("u.jpg", b"u"), ("b/v.jpg", b"v")):
+        (test / name).write_bytes(data)
+    return str(tmp_path / "train"), str(tmp_path / "test")
+
+
+def test_check_sha_equals_jax(sha_folders):
+    src, dst = sha_folders
+    assert psha.load_folder(dst) == jsha.load_folder(dst)
+    port, ref = psha.check_folder(src, dst), jsha.check_folder(src, dst)
+    assert port == ref
+    assert (len(port[0]), len(port[1])) == (3, 2)
+    path = os.path.join(dst, "a", "u.jpg")
+    assert psha.sha512_file(path) == jsha.sha512_file(path)
+
+
+@pytest.mark.parametrize("p,seed", [(0.1, 0), (0.5, 0), (0.5, 3), (0.9, 7)])
+def test_sample_dataset_copies_what_jax_copies(dataset, tmp_path, p, seed):
+    copied = {}
+    for name, module in (("port", psample), ("jax", jsample)):
+        dst = tmp_path / name
+        n = module.sample_dataset(dataset, str(dst), p, seed=seed)
+        copied[name] = (n, sorted(os.path.relpath(os.path.join(r, f), dst)
+                                  for r, _, fs in os.walk(dst) for f in fs))
+    assert copied["port"] == copied["jax"]
+    assert copied["port"][0] == len(copied["port"][1])
+
+
+def test_references_equal_jax(dataset, tmp_path):
+    """add_reference puts each label's first file as <label>/0.jpg (a label
+    with no files and a stray file are skipped); del_reference removes
+    them."""
+    ref_dir = tmp_path / "ref"
+    shutil.copytree(dataset, ref_dir)
+    (ref_dir / "class_empty").mkdir()
+    (ref_dir / "stray.txt").write_text("not a label")
+    trees = {}
+    for name, module in (("port", psample), ("jax", jsample)):
+        target = tmp_path / name
+        module.sample_dataset(dataset, str(target), 0.5, seed=1)
+        added = module.add_reference(str(ref_dir), str(target))
+        refs = sorted((p.parent.name, p.read_bytes())
+                      for p in target.glob("*/0.jpg"))
+        removed = module.del_reference(str(target))
+        trees[name] = (added, refs, removed,
+                       sorted(str(p.relative_to(target))
+                              for p in target.rglob("*")))
+    assert trees["port"] == trees["jax"]
+    assert trees["port"][0] == trees["port"][2] == 3
+
+
+def _jax_main(module, argv, monkeypatch):
+    monkeypatch.setattr(sys, "argv", [module.rsplit(".", 1)[-1], *argv])
+    runpy.run_module(module, run_name="__main__")
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("check_sha", ["--src", "{train}", "--dst", "{test}"]),
+    ("sample_dataset", ["--src", "{data}", "--dst", "{out}", "-p", "0.4"]),
+    ("sample_dataset", ["--src", "{data}", "--dst", "{out}",
+                        "--add-reference"]),
+    ("sample_dataset", ["--src", "{data}", "--dst", "{data_copy}",
+                        "--del-reference"]),
+])
+def test_cli_output_equals_jax(cli, argv, dataset, sha_folders, tmp_path,
+                               monkeypatch, capsys):
+    """Each CLI's ``main`` prints what the JAX module's ``__main__`` prints
+    on the same arguments (each side on its own output folder)."""
+    printed = []
+    for name, run in (
+            ("port", lambda a: getattr({"check_sha": psha,
+                                        "sample_dataset": psample}[cli],
+                                       "main")(a)),
+            ("jax", lambda a: _jax_main(
+                f"touhouimageclassification_tpu.utils.{cli}", a,
+                monkeypatch))):
+        data_copy = tmp_path / name / "data"
+        shutil.copytree(dataset, data_copy)
+        psample.add_reference(dataset, str(data_copy))
+        fields = dict(train=sha_folders[0], test=sha_folders[1], data=dataset,
+                      out=str(tmp_path / name / "out"),
+                      data_copy=str(data_copy))
+        run([a.format(**fields) for a in argv])
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1]
+    assert printed[0]

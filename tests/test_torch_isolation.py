@@ -2,7 +2,8 @@
 
 Importing every module of the port, running a CPU predict and CPU train
 steps (the default model, ``attention_impl='flash'`` with
-``patch_embed_impl='pallas'``, and a ResNet) must leave ``jax``, ``flax``
+``patch_embed_impl='pallas'``, and a ResNet), an extract and load of bare
+params and the augmentation grids must leave ``jax``, ``flax``
 and every module of ``touhouimageclassification_tpu`` unimported: the port keeps its own
 copies of the numpy modules it needs. The port's sources hold no import of
 either, no library attention, no ``torch.compile``, and no ``try`` or
@@ -69,6 +70,21 @@ t = Trainer(dataclasses.replace(PRESETS["resnet152"], global_batch_size=4),
 state = t.init_state()
 m = t.train_step(state, t.stage(batch))
 assert np.isfinite(m["loss"]) and state.step == 1
+import os, tempfile
+from PIL import Image
+from touhouimageclassification_tpu_torch.analysis import aug
+from touhouimageclassification_tpu_torch.infer.serve import load_weights
+from touhouimageclassification_tpu_torch.train.checkpoint import save_params
+from touhouimageclassification_tpu_torch.utils.extract_ckpt import extract
+with tempfile.TemporaryDirectory() as tmp:
+    save_params(os.path.join(tmp, "params.safetensors"), rn.state_dict())
+    out = extract(tmp, os.path.join(tmp, "out"))
+    assert load_weights(out).keys() == rn.state_dict().keys()
+    Image.fromarray(np.zeros((20, 20, 3), np.uint8)).save(
+        os.path.join(tmp, "x.png"))
+    assert len(aug.visualize(os.path.join(tmp, "x.png"),
+                             os.path.join(tmp, "grids"), out_size=(16, 16),
+                             device="cpu")) == 4
 loaded = sorted(m for m in sys.modules if m in ("jax", "flax")
                 or m.split(".")[0] == "touhouimageclassification_tpu")
 print(len(mods), loaded)
@@ -115,18 +131,22 @@ NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "models/resnet.py", "web/runtime.py", "ops/moe_dispatch.py",
                "models/resmoe.py", "models/treevit.py", "train/tasks.py",
                "parallel/dist.py", "parallel/mesh.py",
-               "parallel/collectives.py")
+               "parallel/collectives.py", "analysis/aug.py",
+               "utils/extract_ckpt.py", "infer/serve.py")
 
 
 def test_kernel_wrapper_has_no_fallback():
     """The kernel wrappers (K1-K5), the build, the device choice, the train
     modules that place tensors, the ResNet, the mixtures' dispatch, models
     and tasks, the web daemon, and the multi-process start-up, grid and
-    collectives: no try/except to fall back with and no environment switch
-    near a device. (The build reads CUDA_HOME to find nvcc; the web daemon
-    reads the TIC_WEB_* names of its model, weights and dataset, never its
-    device; the start-up reads only its launch variables, ``LAUNCH_VARS``,
-    on a line that names no device.)"""
+    collectives, the augmentation grids, the extractor and serve's loading
+    route (from ``get_model`` to the export's loader; the judge's canvas
+    cache, which may find no folder, is not on it): no try/except to fall
+    back with and no environment switch near a device. (The build reads
+    CUDA_HOME to find nvcc; the web daemon reads the TIC_WEB_* names of its
+    model, weights and dataset, never its device; the start-up reads only
+    its launch variables, ``LAUNCH_VARS``, on a line that names no
+    device.)"""
     for module in NO_FALLBACK:
         src = (PORT / module).read_text()
         environ = [line for line in src.splitlines() if "environ" in line]
@@ -139,6 +159,10 @@ def test_kernel_wrapper_has_no_fallback():
             assert src.count("except Exception as e:") == 1
             src = src.replace("try:", "").replace(
                 "except Exception as e:", "")
+        elif module == "infer/serve.py":
+            src = src[src.index("def get_model"):]
+            src = src[:src.index("def _judge_canvas_cache")]
+            assert not environ, environ
         elif module == "parallel/dist.py":
             assert environ and all("LAUNCH_VARS" in line
                                    and "device" not in line

@@ -8,8 +8,8 @@ JAX's own DP tests equate with its sharded step).
   host numpy in the port, ``jax.random`` keys in JAX), so the JAX step is
   traced with the numbers the port draws for the global batch: each
   uniform and Bernoulli draw of JAX's augment and mixup modules returns
-  the port's (``_ReplayAugment``, ``_ReplayMix``), and JAX's own code
-  crops, jitters, erases, rolls the global batch and mixes. A rank that
+  the port's (``augment_replay.ReplayAugment``, ``_ReplayMix``), and
+  JAX's own code crops, jitters, erases, rolls the global batch and mixes. A rank that
   drew for its own rows only, or rolled its rows alone, differs. Loss
   1e-5, parameters 1e-5 (``tests/test_parallel.py``'s bound), the key bias
   to 2 x lr a step (its gradient is rounding noise,
@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from augment_replay import ReplayAugment
 from fixtures import make_image_folder
 from test_torch_copies import port_config
 from torch_mp import merged, spawn
@@ -85,38 +86,6 @@ def _batches(size, n=STEPS, seed=0):
     return [{"image": rng.integers(0, 256, (8, size, size, 3)).astype(np.uint8),
              "label": rng.integers(0, 4, 8).astype(np.int32),
              "mask": np.ones(8, bool)} for _ in range(n)]
-
-
-class _ReplayAugment:
-    """Stands in for ``jax`` in the JAX package's ``ops/augment.py`` while
-    a step is traced: each ``uniform`` and ``bernoulli`` returns the next
-    of the port's per-image U[0, 1) draws, which both packages take in the
-    same order and map to their ranges alike (``lo + (hi - lo) * u``,
-    ``u < p``)."""
-    lax, Array = jax.lax, jax.Array
-
-    def __init__(self, uniforms):
-        self.random = self
-        self._next = iter(uniforms)
-
-    def split(self, key, num=2):
-        return [key] * num
-
-    def _u(self, shape):
-        u = jnp.asarray(next(self._next).numpy())
-        assert u.shape == tuple(shape)
-        return u
-
-    def uniform(self, key, shape=(), dtype=jnp.float32, minval=0.0,
-                maxval=1.0):
-        lo, hi = jnp.asarray(minval, dtype), jnp.asarray(maxval, dtype)
-        return jnp.maximum(lo, self._u(shape) * (hi - lo) + lo)
-
-    def bernoulli(self, key, p=0.5, shape=()):
-        return self._u(shape) < p
-
-    def done(self):
-        return next(self._next, None) is None
 
 
 class _ReplayMix:
@@ -198,7 +167,7 @@ def _jax_run(tmp, cfg, model, batches, draws=None):
     for i, batch in enumerate(batches):
         with pytest.MonkeyPatch.context() as mp:
             if draws is not None:
-                replay = _ReplayAugment(draws[i][0])
+                replay = ReplayAugment(draws[i][0])
                 mp.setattr(jaug, "jax", replay)
                 mp.setattr(jmix, "jax", _ReplayMix(draws[i][1]))
                 step = jt._make_train_step()

@@ -20,12 +20,18 @@ differs:
 - weights are reference torch checkpoints (HF-layout ViT, torchvision-
   layout ResNet, the reference's ResMoE and TreeViT of HF ViTs, whose
   member count the model is rebuilt to; ``.pth``/``.pt``/``.bin``/
-  ``.safetensors``) or the port's
-  serving export (a directory of ``params.safetensors`` and
-  ``serving_meta.json``, written by the training CLIs' ``--transform``);
-  the JAX package's Orbax exports are not loadable. Without ``--weights``
-  the model type's path in :data:`model_checkpoints` is loaded, as in the
-  JAX package.
+  ``.safetensors``) or one of three directories, as the JAX package's
+  ``init`` takes them: a serving export (``params.safetensors`` and
+  ``serving_meta.json``, written by the training CLIs' ``--transform``),
+  a bare params directory (``params.safetensors`` alone, written by
+  ``utils.extract_ckpt`` and ``utils.convert``) or one epoch of a training
+  checkpoint (``meta.json`` and every ``state*.safetensors``, expert
+  shards included; the optimizer's and accumulator's entries are
+  dropped). The last two are built from ``--model``, with a mixture's
+  member count taken from the tensor names, and served with the dataset's
+  class map, mean and std. The JAX package's Orbax directories are not
+  loadable. Without ``--weights`` the model type's path in
+  :data:`model_checkpoints` is loaded, as in the JAX package.
 
 CLI: ``python -m touhouimageclassification_tpu_torch.infer.serve --model
 vit-large --image data/testset --weights <ckpt> --output result/x.csv --full``
@@ -36,7 +42,7 @@ import contextlib
 import copy
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -47,7 +53,8 @@ from ..data.folder import IMG_EXTENSIONS, get_class_to_idx
 from ..device import resolve_device
 from ..models import EXPORT_CONFIGS, config_from_dict, create_model, input_size
 from ..ops.augment import normalize, resize
-from ..train.checkpoint import SERVING_META, SERVING_PARAMS, load_params
+from ..train.checkpoint import (SERVING_META, SERVING_PARAMS, load_params,
+                                read_weights, weights_kind)
 from ..utils.convert import (convert_checkpoint, member_overrides,
                              read_checkpoint)
 from ..utils.mean_std import get_mean_std
@@ -70,6 +77,39 @@ _SERVE_TYPE_ALIASES = {"resnet": "resnet152", "nvit": "vit-large",
 TORCH_CKPT_EXTS = (".pth", ".pt", ".bin", ".safetensors")
 
 BUCKETS = (1, 8, 64)
+
+
+def get_model(model_type: str, num_classes: int, device="cuda",
+              **overrides) -> nn.Module:
+    """The serving model of a model type (``resnet`` is ResNet-152,
+    ``nvit`` ViT-L, ``resmoe`` and ``treevit`` the mixtures, whose
+    ``overrides`` are fields of their configs) on ``device``, in bf16."""
+    mt = model_type.lower().replace("_", "-")
+    return create_model(_SERVE_TYPE_ALIASES.get(mt, mt),
+                        num_classes=num_classes,
+                        device=resolve_device(device), **overrides)
+
+
+def load_weights(path: str, model: nn.Module | None = None,
+                 num_classes: int | None = None) -> dict[str, torch.Tensor]:
+    """The serving weights at ``path`` as a state dict of the port's model:
+    a weights directory's tensors as saved (``train.checkpoint.
+    read_weights``: a serving export's or a bare params directory's
+    ``params.safetensors``, or a training checkpoint's model tensors), or
+    a reference torch checkpoint converted for ``model``'s config, with a
+    head of ``num_classes`` classes (default: the model's)."""
+    if os.path.isdir(path):
+        return read_weights(path)
+    if not path.endswith(TORCH_CKPT_EXTS):
+        raise ValueError(
+            f"{path}: expected a .pth/.pt/.bin/.safetensors checkpoint or a "
+            "weights directory")
+    if model is None:
+        raise ValueError(f"{path}: a torch checkpoint converts for a model's "
+                         "config; pass model=")
+    cfg = (model.cfg if num_classes is None else
+           replace(model.cfg, num_classes=num_classes))
+    return convert_checkpoint(read_checkpoint(path), cfg)
 
 
 @dataclass
@@ -224,15 +264,17 @@ def build_predictor(args=None, modelt=None, weights=None,
                     device="cuda") -> Predictor:
     """Build a Predictor: class map + weights + normalisation statistics.
 
-    ``weights`` is a reference torch checkpoint of the model type's family
-    (served at its config's image size: 224 for a ViT and the mixtures'
-    ViT-B members, 256 for a ResNet, with the dataset's mean and std; a
-    ResMoE or TreeViT is built with the checkpoint's member count), or a
-    serving export directory: there, as in the JAX package's ``init``, the
-    model's config, the class map and the mean and std come from
-    ``serving_meta.json`` and the parameters from ``params.safetensors``.
-    ``weights=None`` takes the model type's :data:`model_checkpoints`
-    path."""
+    ``weights`` is a serving export directory: there, as in the JAX
+    package's ``init``, the model's config, the class map and the mean and
+    std come from ``serving_meta.json`` and the parameters from
+    ``params.safetensors``. Otherwise (a reference torch checkpoint of the
+    model type's family, a bare params directory or a training checkpoint,
+    see :func:`~..train.checkpoint.weights_kind`) the model type's model is
+    built (a ResMoE or TreeViT with the member count the tensor names give)
+    and loads the weights strictly; the class map comes from ``data_dir``
+    and the mean and std from its images at the model's input size (224 for
+    a ViT and the mixtures' ViT-B members, 256 for a ResNet). ``weights=None``
+    takes the model type's :data:`model_checkpoints` path."""
     if args:
         modelt = args.model
         weights = getattr(args, "weights", None)
@@ -250,20 +292,23 @@ def build_predictor(args=None, modelt=None, weights=None,
                 f"{weights}: no checkpoint at the default path for {modelt!r} "
                 "(pass --weights, or write a serving export there with a "
                 "training CLI's --transform)")
-    mt = _SERVE_TYPE_ALIASES.get(mt, mt)
     if os.path.isdir(weights):
-        return _init_export(weights, data_dir, device)
-    if not weights.endswith(TORCH_CKPT_EXTS):
+        if weights_kind(weights) == "export":
+            return _init_export(weights, data_dir, device)
+        state_dict, convert = read_weights(weights), False
+    elif weights.endswith(TORCH_CKPT_EXTS):
+        state_dict, convert = read_checkpoint(weights), True
+    else:
         raise ValueError(
             f"{weights}: expected a .pth/.pt/.bin/.safetensors checkpoint "
-            f"or a serving export directory ({SERVING_META} + "
-            f"{SERVING_PARAMS})")
+            f"or a weights directory (a serving export, {SERVING_META} + "
+            f"{SERVING_PARAMS}; bare params; a training checkpoint)")
 
     class_to_idx = get_class_to_idx(data_dir)
-    state_dict = read_checkpoint(weights)
-    model = create_model(mt, num_classes=len(class_to_idx), device=device,
-                         **member_overrides(state_dict, mt))
-    model.load_state_dict(convert_checkpoint(state_dict, model.cfg))
+    model = get_model(mt, len(class_to_idx), device,
+                      **member_overrides(state_dict, mt))
+    model.load_state_dict(convert_checkpoint(state_dict, model.cfg)
+                          if convert else state_dict)
     image_size = input_size(model)
     mean, std = get_mean_std(data_dir, image_size)
     return Predictor(model=model, class_to_idx=class_to_idx,
@@ -276,12 +321,6 @@ def _init_export(export_dir: str, data_dir: str,
     model's config (``vit_config``, ``resnet_config``, ``moe_config`` or
     ``treevit_config``), the mean and std and (when the export has it) the
     class map from its meta."""
-    missing = [name for name in (SERVING_META, SERVING_PARAMS)
-               if not os.path.exists(os.path.join(export_dir, name))]
-    if missing:
-        raise FileNotFoundError(
-            f"{export_dir} is not a serving export: no {' or '.join(missing)} "
-            "(write one with a training CLI's --transform)")
     with open(os.path.join(export_dir, SERVING_META)) as f:
         meta = json.load(f)
     if meta.get("class_to_idx"):

@@ -105,3 +105,12 @@ class TreeViT(nn.Module):
         kept = md.kept_mass(plan, smoothed, b)
         return combined / kept.clamp(min=1e-9)[:, None], choice, kept
 
+
+
+def make_tree_vit(num_categories: int, num_classes: int, top_k: int = 2,
+                  **kwargs) -> TreeViT:
+    """The reference's ``make_TreeViT`` (``TIC/TreeViT/model.py:25-30``);
+    ``kwargs`` go to :class:`TreeViT` (dtype, device, seed)."""
+    return TreeViT(TreeViTConfig(num_categories=num_categories,
+                                 num_classes=num_classes, top_k=top_k),
+                   **kwargs)

@@ -40,6 +40,12 @@ barrier, renames the directory into place and applies the retention, and a
 last barrier lets every rank see it. Such a save is synchronous. A restore
 reads every ``state*.safetensors`` of the directory and keeps what the
 rank holds.
+
+Serving reads weights directories of three kinds (:func:`weights_kind`): a
+serving export (``params.safetensors`` + ``serving_meta.json``), bare
+params (``params.safetensors`` alone) and one epoch directory of these
+checkpoints, whose model tensors :func:`read_weights` gathers from every
+state file.
 """
 from __future__ import annotations
 
@@ -331,11 +337,7 @@ class CheckpointManager:
         path = self._path(epoch)
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
-        tensors: dict[str, torch.Tensor] = {}
-        for name in sorted(os.listdir(path)):
-            if name.startswith("state") and name.endswith(".safetensors"):
-                tensors.update(load_file(os.path.join(path, name)))
-        return tensors, meta
+        return read_state_files(path), meta
 
     def restore(self, state, epoch: int | None = None):
         """Load step ``epoch`` (default: the latest) into ``state`` in
@@ -370,12 +372,55 @@ class CheckpointManager:
         self.wait()
 
 
+def _is_state_file(name: str) -> bool:
+    return name.startswith("state") and name.endswith(".safetensors")
+
+
+def read_state_files(path: str) -> dict[str, torch.Tensor]:
+    """Every ``state*.safetensors`` of the save directory ``path`` (each
+    expert rank's members) in one dict."""
+    tensors: dict[str, torch.Tensor] = {}
+    for name in sorted(os.listdir(path)):
+        if _is_state_file(name):
+            tensors.update(load_file(os.path.join(path, name)))
+    return tensors
+
+
 def save_params(path: str, params: dict[str, torch.Tensor]) -> None:
-    """Params-only safetensors file for serving (the
-    ``extract_ckpt.py`` analogue)."""
+    """Params-only safetensors file for serving."""
     save_safetensors({k: v.detach().to("cpu").contiguous()
                       for k, v in params.items()}, path)
 
 
 def load_params(path: str) -> dict[str, torch.Tensor]:
     return load_file(path)
+
+
+def weights_kind(path: str) -> str:
+    """What the weights directory ``path`` holds: ``'export'`` (a serving
+    export, ``serving_meta.json`` + ``params.safetensors``), ``'params'``
+    (``params.safetensors`` alone, as ``utils.extract_ckpt`` and
+    ``utils.convert`` write it) or ``'checkpoint'`` (one save of
+    :class:`CheckpointManager`, ``meta.json`` + ``state*.safetensors``).
+    Anything else raises ``FileNotFoundError`` naming the files looked
+    for."""
+    names = set(os.listdir(path))
+    if SERVING_PARAMS in names:
+        return "export" if SERVING_META in names else "params"
+    if META_FILE in names and any(_is_state_file(n) for n in names):
+        return "checkpoint"
+    raise FileNotFoundError(
+        f"{path} is not a serving export ({SERVING_META} + {SERVING_PARAMS}), "
+        f"a bare params directory ({SERVING_PARAMS}) or a training "
+        f"checkpoint ({META_FILE} + state*.safetensors)")
+
+
+def read_weights(path: str) -> dict[str, torch.Tensor]:
+    """The model's tensors in the weights directory ``path`` (see
+    :func:`weights_kind`), as saved: ``params.safetensors``, or every state
+    file of a training checkpoint without the optimizer's ``opt/*`` and
+    the accumulator's ``acc/*``."""
+    if weights_kind(path) == "checkpoint":
+        return {k: v for k, v in read_state_files(path).items()
+                if not k.startswith(("opt/", "acc/"))}
+    return load_params(os.path.join(path, SERVING_PARAMS))

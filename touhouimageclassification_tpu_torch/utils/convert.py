@@ -24,6 +24,9 @@
   :func:`torch_moe_to_flax` / :func:`torch_treevit_to_flax`;
   :func:`member_overrides` reads its member count, which the config does
   not hold, so that a loader builds the model to match.
+- :func:`convert_and_save` (the CLI) writes a reference checkpoint of any
+  family as ``<out_dir>/params.safetensors``, a bare params directory that
+  ``infer.serve`` loads with ``--model``.
 
 ``_strip_prefixes``, ``torch_vit_to_flax``, ``torch_resnet_to_flax``,
 ``_normalize_ckpt``, ``member_overrides``, ``torch_moe_to_flax`` and
@@ -33,6 +36,7 @@
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Mapping
 
@@ -475,3 +479,46 @@ def load_resnet_weights(path: str, cfg: ResNetConfig
     (``np.random.default_rng(0)``, normal(0, 0.02), zero bias) when ``fc``
     has another class count."""
     return convert_checkpoint(read_checkpoint(path), cfg)
+
+
+def convert_and_save(path: str, model_type: str, num_classes: int,
+                     out_dir: str) -> str:
+    """A reference checkpoint (``.pth``/``.pt``/``.bin`` in the reference's
+    bare, tuple or Lightning formats, or ``.safetensors``) -> the state dict
+    of the port's ``model_type`` with ``num_classes`` classes, written as
+    ``<out_dir>/params.safetensors`` in f32 as converted. A mixture is built
+    with the checkpoint's member count (:func:`member_overrides`), and the
+    converted state dict must load into the model, every key and shape. No
+    ``serving_meta.json`` is written: serve takes the class map and the
+    mean and std from its dataset."""
+    from ..models import create_model
+    from ..train.checkpoint import SERVING_PARAMS, save_params
+
+    state_dict = read_checkpoint(path)
+    model = create_model(model_type, num_classes=num_classes, device="cpu",
+                         **member_overrides(state_dict, model_type))
+    params = convert_checkpoint(state_dict, model.cfg)
+    model.load_state_dict(params)
+    os.makedirs(out_dir, exist_ok=True)
+    save_params(os.path.join(out_dir, SERVING_PARAMS), params)
+    return out_dir
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Convert torch checkpoints to serving params")
+    parser.add_argument("--input", required=True, help=".pth checkpoint path")
+    parser.add_argument("--model", required=True,
+                        help="model type (vit-large, resnet152, ...)")
+    parser.add_argument("--num-classes", type=int, default=120)
+    parser.add_argument("--output", required=True,
+                        help="output params directory")
+    args = parser.parse_args(argv)
+    convert_and_save(args.input, args.model, args.num_classes, args.output)
+    print(f"Saved converted params to {args.output}")
+
+
+if __name__ == "__main__":
+    main()
