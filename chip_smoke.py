@@ -16,9 +16,15 @@ fatal on failure:
 3. hold the slab attention forward kernel (K1) against its plain PyTorch
    version on the card at the serve path's shapes, and time it, its plain
    version and ``F.scaled_dot_product_attention``; then in bf16 at every N
-   of ``SWEEP_N`` and D of ``SWEEP_D`` (B 1), checking that bf16 launches
-   take the tensor-core route (``mma``) and f32 the SIMT route, and that a
-   shape past shared memory raises;
+   of ``SWEEP_N`` and D of ``SWEEP_D`` (B 1), checking that each launch
+   takes the route ``kernel_route`` names (the bf16 forward at D 64 and
+   N <= 256 ``wgmma``, other bf16 shapes ``mma``, f32 ``simt``), that the
+   wrapper's shared memory equals the C sum of both bf16 routes, and that a
+   shape past shared memory raises; then K1's ``wgmma`` route against its
+   ``mma.sync`` kernel (the S2 study's exp2 variant, K1's earlier route),
+   SDPA and the plain version at ViT-L B 64 and 1 and ViT-B B 2, 4 and 64,
+   around one launch and as device time, with the bound and the host time
+   of one launch;
 4. the same for the backward kernel (K2) at the train path's shapes (the
    library call is SDPA's autograd backward), and check that autograd
    through the fused attention runs K1 then K2; measure how far the
@@ -56,7 +62,8 @@ fatal on failure:
 11. the training loop end to end: ``train.ntrain.main`` (the ``nvit``
     preset, one epoch through ``HostImageLoader``, from a synthetic local
     HF snapshot of the random weights) with K1 and K2 launched once per
-    layer per step on the ``mma`` route, its checkpoint restored, ``--test``,
+    layer per step, K1 on the ``wgmma`` route and K2 on ``mma`` (every bf16
+    model path below counts them so), its checkpoint restored, ``--test``,
     ``--transform`` to a serving export and the serve CLI on that export,
     whose judge CSV must equal the one of a ``Predictor`` on the restored
     model; a profiled ``Trainer.fit``; then exact resume from the seeded
@@ -84,17 +91,19 @@ fatal on failure:
     B 64 and 128, their launches counted; then every level and variant held
     to its plain version (``dma``, ``layout`` and the copies bit for bit,
     ``matmul`` and ``full`` within the bf16 bounds) and the ``full`` peels
-    to K1 and K2 bit for bit;
+    bit for bit to the ``mma.sync`` forward they peel (K1's kernel before the
+    ``wgmma`` route) and to K2;
 14. the kernel studies S1-S4, the study path: ``tools.bench_attn4`` (S1,
     whole images a block), ``tools.bench_attn6`` (S2, exp / exp2 and the
     divide of P / 1 / l after PV, on K1's kernel), ``tools.bench_attn7``
     (S3, head batching, forward and backward) and ``tools.bench_attn8`` (S4,
     H / S heads a block, forward and backward) at ViT-L's width and B 64 and
     128, their launches counted by tile and variant; then every tile held
-    to its plain version within the bf16 bounds and to K1 (forward) and K2
-    (backward) bit for bit, at B 64 and 128 and on ragged shapes (B 1, 2, 3;
-    N 16, 67, 197, 257), the S2 variants to their plain versions (exp2
-    without post_mul to K1 bit for bit), a tile past shared memory (N 577)
+    to its plain version within the bf16 bounds and bit for bit to the
+    ``mma.sync`` forward (S2's exp2 variant without post_mul) and to K2
+    (backward), at B 64 and 128 and on ragged shapes (B 1, 2, 3; N 16, 67,
+    197, 257), the S2 variants to their plain versions, a tile past shared
+    memory (N 577)
     raising, and ``tile_smem_bytes`` equal to the C sums;
 15. the mixture families at the presets' full width (8 + 1 ViT-B/16
     members at 224x224, 120 classes, random weights from seed 0), K1 and K2
@@ -239,12 +248,21 @@ REL_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 # The attention kernels' shape sweep in bf16 (B 1, two heads): N from one
-# token to ViT at 384^2 (577), through a 16-row chunk, ragged edges and
-# ViT-L's 197; every head dim the kernels take. At N 577, D 128 the operands
-# exceed shared memory and the launch must raise.
-SWEEP_N = (1, 16, 67, 197, 257, 577)
+# token to ViT at 384^2 (577), through a 16-row chunk, ragged edges, ViT-L's
+# 197 and the wgmma route's last N (256); every head dim the kernels take. At
+# N 577, D 128 the operands exceed shared memory and the launch must raise.
+SWEEP_N = (1, 16, 67, 197, 256, 257, 577)
 SWEEP_D = (32, 64, 128)
-ROUTES = {"bfloat16": "mma", "float32": "simt"}
+# The attention kernels' routes by dtype at the models' shapes (D 64, N 197):
+# the forward (K1, K3's forward, K4) on the Hopper wgmma kernel in bf16, the
+# backward (K2, K3's backward) on mma.sync; f32 on SIMT either way.
+ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
+BWD_ROUTES = {"bfloat16": "mma", "float32": "simt"}
+# K1's routes compared at the mixtures' and ViT-L's widths (phase 3): (name,
+# B, C, H) at N 197.
+K1_ROUTE_SHAPES = (("vit-l", 64, 1024, 16), ("vit-l", 1, 1024, 16),
+                   ("vit-b", 2, 768, 12), ("vit-b", 4, 768, 12),
+                   ("vit-b", 64, 768, 12))
 # The patch embedding's bf16 sweep: batches around the serve buckets and a
 # ragged last 128-row tile (M 196, 588, 12,348), ViT's 224x224 at P 16 and 8
 # and a non-square image (H, W, P), and output widths from one tile to
@@ -410,6 +428,18 @@ def attention_bound(b, n, c, h, dtype, backward: bool):
                  elems * (2 if dtype_key(dtype) == "bfloat16" else 4), dtype)
 
 
+def zero_routes(attn) -> None:
+    """Set the attention kernels' launch counts by route to 0."""
+    attn.route_launches.update(dict.fromkeys(attn.route_launches, 0))
+
+
+def model_routes(forwards: int, backwards: int) -> dict:
+    """The attention launches by route that a bf16 model path at D 64 and
+    N 197 must show: its forwards (K1, K4) on wgmma, its backwards (K2) on
+    mma, none on simt."""
+    return {"wgmma": forwards, "mma": backwards, "simt": 0}
+
+
 def check_close(torch, what: str, out, ref, dtype, verbose: bool = True):
     """Kernel output against its plain version: elementwise within TOL and,
     in norm, within REL_TOL; returns the largest |difference| (and, quiet,
@@ -430,8 +460,9 @@ def check_close(torch, what: str, out, ref, dtype, verbose: bool = True):
 
 def on_route(ops, dtype, launches: int, run, routes=ROUTES):
     """``run()``, which makes ``launches`` kernel launches of the module
-    ``ops``: every one must take the dtype's route (``routes``: attention
-    bf16 ``mma``, f32 ``simt``). Returns its result."""
+    ``ops``: every one must take the dtype's route (``routes``: the
+    attention forward bf16 ``wgmma``, f32 ``simt``; ``BWD_ROUTES`` for the
+    backward). Returns its result."""
     want = routes[dtype_key(dtype)]
     before = dict(ops.route_launches)
     out = run()
@@ -444,22 +475,31 @@ def on_route(ops, dtype, launches: int, run, routes=ROUTES):
 
 def sweep(torch, attn, what: str, backward: bool, make) -> None:
     """One kernel in bf16 over SWEEP_N x SWEEP_D (B 1, two heads): its
-    shared memory as the wrapper computes it equals the C function's; a
-    shape that fits runs on the mma route within TOL and REL_TOL of its
-    plain version, a shape that does not raises before launching.
+    shared memory as the wrapper computes it equals the C function's, for
+    the route ``kernel_route`` names and for ``mma`` where that is
+    ``wgmma``; a shape that fits runs on its route within TOL and REL_TOL of
+    its plain version, a shape that does not raises before launching.
     ``make(n, c, h)`` returns (kernel call, plain call)."""
     torch.cuda.synchronize()
     lib = attn.load_library()
     limit = lib.tic_max_smem_optin(0)
-    c_bytes = (lib.tic_slab_attention_bwd_smem_bytes if backward
-               else lib.tic_slab_attention_fwd_smem_bytes)
+    c_bytes = {"mma": lambda n, d: (
+        lib.tic_slab_attention_bwd_smem_bytes if backward
+        else lib.tic_slab_attention_fwd_smem_bytes)(n, d, 1),
+        "wgmma": lib.tic_slab_attention_fwd_sm90_smem_bytes}
     worst, raised = (0.0, 0.0), []
+    by_route = {}
     for d in SWEEP_D:
         for n in SWEEP_N:
-            need = attn.kernel_smem_bytes("mma", backward, n, d)
-            if need != c_bytes(n, d, 1):
-                raise AssertionError(f"{what} N {n} D {d}: shared memory "
-                                     f"{need} (wrapper) vs {c_bytes(n, d, 1)}")
+            route = attn.kernel_route(torch.bfloat16, d, n, backward)
+            by_route.setdefault(route, []).append((n, d))
+            for r in {route, "mma"}:
+                got = attn.kernel_smem_bytes(r, backward, n, d)
+                if got != c_bytes[r](n, d):
+                    raise AssertionError(
+                        f"{what} N {n} D {d}: {r} shared memory {got} "
+                        f"(wrapper) vs {c_bytes[r](n, d)}")
+            need = attn.kernel_smem_bytes(route, backward, n, d)
             kernel, plain = make(n, 2 * d, 2)
             if need > limit:
                 before = dict(attn.route_launches)
@@ -472,7 +512,8 @@ def sweep(torch, attn, what: str, backward: bool, make) -> None:
                     continue
                 raise AssertionError(f"{what} N {n} D {d}: {need} bytes of "
                                      f"shared memory past {limit} launched")
-            out = on_route(attn, torch.bfloat16, 1, kernel)
+            out = on_route(attn, torch.bfloat16, 1, kernel,
+                           {"bfloat16": route})
             torch.cuda.synchronize()
             if isinstance(out, tuple):
                 out, ref = torch.cat(out, -1), torch.cat(plain(), -1)
@@ -482,7 +523,8 @@ def sweep(torch, attn, what: str, backward: bool, make) -> None:
                               torch.bfloat16, verbose=False)
             worst = tuple(max(a, b) for a, b in zip(worst, got))
     print(f"{what}, bf16 sweep N {SWEEP_N} x D {SWEEP_D} (B 1, H 2): every "
-          f"launch on the mma route; worst max |diff| {worst[0]:.3e}, "
+          f"launch on its route, (N, D) by route {by_route}; worst max |diff| "
+          f"{worst[0]:.3e}, "
           f"relative norm {worst[1]:.3e} (bounds {TOL['bfloat16']}, "
           f"{REL_TOL['bfloat16']}); raised as past shared memory ({limit} "
           f"bytes): {raised}")
@@ -506,8 +548,62 @@ def sdpa_backward_ms(torch, leaves, views, g) -> float:
                                                retain_graph=True))
 
 
-def phase_kernels(torch, attn):
-    """Kernel vs plain at the serve path's shapes; times at the ViT-L bucket."""
+def host_ms(torch, fn, calls: int = 100) -> float:
+    """Host milliseconds to enqueue one ``fn()``: ``calls`` calls while a
+    spin kernel holds the card, so none waits for the device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * secs / calls
+
+
+def k1_routes(torch, attn, study, gen, dev) -> list[dict]:
+    """K1 on its ``wgmma`` route against its ``mma.sync`` kernel (S2's exp2
+    variant without post_mul, bit-equal to K1's earlier route), SDPA and the
+    plain version at K1_ROUTE_SHAPES: one launch between events (``ms``),
+    device time (``device_ms``), the host's time to enqueue one launch and
+    the bytes bound. Every launch of the wgmma side counted on its route."""
+    rows = []
+    for name, b, c, h in K1_ROUTE_SHAPES:
+        qkv = torch.randn(b, 197, 3 * c, generator=gen, device=dev).to(
+            torch.bfloat16)
+        views = qkv.view(b, 197, 3, h, c // h).unbind(2)
+        sides = {"wgmma": lambda: attn.slab_attention_forward(qkv, h),
+                 "mma": lambda: study.softmax_variant_forward(qkv, h, True,
+                                                              False),
+                 "sdpa": lambda: sdpa(torch, *views),
+                 "plain": lambda: attn.slab_attention_reference(qkv, h)}
+        ref = sides["plain"]()
+        row = {"shape": name, "batch": b}
+        outs = {"wgmma": on_route(attn, torch.bfloat16, 1, sides["wgmma"]),
+                "mma": sides["mma"]()}
+        for side, out in outs.items():
+            row[f"{side}_max_abs_err"] = check_close(
+                torch, f"K1 {side}, {name} B {b}", out, ref, torch.bfloat16,
+                verbose=False)[0]
+        for side, fn in sides.items():
+            row[f"{side}_ms"] = cuda_ms(fn)
+            row[f"{side}_device_ms"] = device_ms(fn)
+        for side in ("wgmma", "mma"):
+            row[f"{side}_host_ms"] = host_ms(torch, sides[side])
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            b, 197, c, h, torch.bfloat16, backward=False)
+        row["wgmma_share_of_bound"] = row["bound_ms"] / row["wgmma_device_ms"]
+        print(f"K1 routes, {name} B {b} (N 197, C {c}, H {h}; "
+              f"{card_line()}): {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_kernels(torch, attn, study):
+    """Kernel vs plain at the serve path's shapes; times at the ViT-L bucket,
+    and K1's two bf16 routes side by side (:func:`k1_routes`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -540,21 +636,22 @@ def phase_kernels(torch, attn):
                     lambda: attn.slab_attention_reference(qkv, h))
 
         sweep(torch, attn, "K1", False, slab)
-        qkv = torch.randn(64, 197, 3 * 1024, generator=gen,
-                          device=dev).to(torch.bfloat16)
-        ms = cuda_ms(lambda: attn.slab_attention(qkv, 16))
-        plain_ms = cuda_ms(lambda: attn.slab_attention_reference(qkv, 16))
-        views = qkv.view(64, 197, 3, 16, 64).unbind(2)
-        library_ms = cuda_ms(lambda: sdpa(torch, *views))
-    bound_ms, bound_by = attention_bound(64, 197, 1024, 16, torch.bfloat16,
-                                         backward=False)
+        routes = k1_routes(torch, attn, study, gen, dev)
+    at64 = routes[0]
     print(f"slab attention, ViT-L bucket 64 bf16 (B 64, N 197, C 1024, H 16): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms (median of 30); bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return dict(max_abs_err=errs[("vit-l bucket 64", torch.bfloat16)], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+          f"kernel (wgmma) {at64['wgmma_ms']:.4f} ms, device "
+          f"{at64['wgmma_device_ms']:.4f}; mma.sync "
+          f"{at64['mma_device_ms']:.4f}; plain {at64['plain_ms']:.4f} ms, "
+          f"SDPA {at64['sdpa_ms']:.4f} ms, device "
+          f"{at64['sdpa_device_ms']:.4f} (median of 30 / 10); bound "
+          f"{at64['bound_ms']:.4f} ms ({at64['bound_by']})")
+    return dict(max_abs_err=errs[("vit-l bucket 64", torch.bfloat16)],
+                ms=at64["wgmma_ms"], device_ms=at64["wgmma_device_ms"],
+                plain_ms=at64["plain_ms"], bound_ms=at64["bound_ms"],
+                bound_by=at64["bound_by"], library_ms=at64["sdpa_ms"],
+                library_device_ms=at64["sdpa_device_ms"],
+                mma_ms=at64["mma_ms"], mma_device_ms=at64["mma_device_ms"],
+                host_ms=at64["wgmma_host_ms"], routes=routes)
 
 
 def phase_backward(torch, attn):
@@ -573,7 +670,8 @@ def phase_backward(torch, attn):
         g = torch.randn(b, n, c, generator=gen, device=dev).to(dtype)
         before = attn.bwd_launches
         out = on_route(attn, dtype, 1,
-                       lambda: attn.slab_attention_backward(qkv, g, h))
+                       lambda: attn.slab_attention_backward(qkv, g, h),
+                       BWD_ROUTES)
         torch.cuda.synchronize()
         if attn.bwd_launches != before + 1:
             raise AssertionError(f"{name}: bwd_launches went {before} -> "
@@ -669,7 +767,8 @@ def phase_three_operand_kernels(torch, attn):
         fwd = on_route(attn, dtype, 1,
                        lambda: attn.packed_attention_forward(q, k, v, h))
         grads = on_route(attn, dtype, 1,
-                         lambda: attn.packed_attention_backward(q, k, v, g, h))
+                         lambda: attn.packed_attention_backward(q, k, v, g, h),
+                         BWD_ROUTES)
         launched(packed, (before[0] + 1, before[1] + 1))
         err = check_close(torch, f"K3 forward vs plain, {name}", fwd,
                           attn.packed_attention_reference(q, k, v, h), dtype)
@@ -683,12 +782,17 @@ def phase_three_operand_kernels(torch, attn):
             out["K3 fwd"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: attn.packed_attention_forward(q, k, v, h)),
+                device_ms=device_ms(
+                    lambda: attn.packed_attention_forward(q, k, v, h)),
                 plain_ms=cuda_ms(
                     lambda: attn.packed_attention_reference(q, k, v, h)),
-                library_ms=cuda_ms(lambda: sdpa(torch, *heads)))
+                library_ms=cuda_ms(lambda: sdpa(torch, *heads)),
+                library_device_ms=device_ms(lambda: sdpa(torch, *heads)))
             out["K3 bwd"] = dict(
                 max_abs_err=bwd_err,
                 ms=cuda_ms(
+                    lambda: attn.packed_attention_backward(q, k, v, g, h)),
+                device_ms=device_ms(
                     lambda: attn.packed_attention_backward(q, k, v, g, h)),
                 plain_ms=cuda_ms(lambda: attn.packed_attention_backward_reference(
                     q, k, v, g, h)),
@@ -723,9 +827,12 @@ def phase_three_operand_kernels(torch, attn):
             out["K4"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: attn.flash_attention_forward(q, k, v)),
+                device_ms=device_ms(lambda: attn.flash_attention_forward(q, k,
+                                                                         v)),
                 plain_ms=cuda_ms(
                     lambda: attn.flash_attention_reference(q, k, v)),
                 library_ms=cuda_ms(lambda: sdpa(torch, q, k, v)),
+                library_device_ms=device_ms(lambda: sdpa(torch, q, k, v)),
                 bound_ms=bound_ms, bound_by=bound_by)
 
     def three(n, c, h):
@@ -749,9 +856,11 @@ def phase_three_operand_kernels(torch, attn):
     sweep(torch, attn, "K4 on views of the QKV slab", False, slab_views)
 
     for key, r in out.items():
-        print(f"{key}, ViT-L batch 64 bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library call {r['library_ms']:.4f} ms "
-              f"(median of 30); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"{key}, ViT-L batch 64 bf16: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+              f"call {r['library_ms']:.4f} ms (device "
+              f"{r.get('library_device_ms', float('nan')):.4f}; median of 30 / "
+              f"10); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
 
 
@@ -884,7 +993,7 @@ def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
     n_images = NUM_CLASSES * PER_CLASS
     forwards = -(-n_images // serve.BUCKETS[-1])
     attn.launches = 0
-    attn.route_launches.update(mma=0, simt=0)
+    zero_routes(attn)
     for cache in ("off", "on"):
         out_csv = os.path.join(work, f"judge_cache_{cache}.csv")
         before = attn.launches
@@ -921,10 +1030,10 @@ def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
         raise AssertionError(f"single image: {attn.launches - before} kernel "
                              f"launches, expected {layers}")
     print(f"serve single image: {layers} kernel launches")
-    if attn.route_launches != {"mma": attn.launches, "simt": 0}:
+    if attn.route_launches != model_routes(attn.launches, 0):
         raise AssertionError(f"serve: K1 launches by route "
                              f"{attn.route_launches}, expected all "
-                             f"{attn.launches} on mma")
+                             f"{attn.launches} on wgmma")
     return attn.launches
 
 
@@ -999,9 +1108,9 @@ def phase_model(torch, attn, pe, serve, create_model, load_vit_weights,
             raise AssertionError(f"serve {variant}: K1/K4/K5 launches {made}, "
                                  f"expected {expect}")
         by_route = {r: attn.route_launches[r] - routes[r] for r in routes}
-        if by_route != {"mma": made[0] + made[1], "simt": 0}:
+        if by_route != model_routes(made[0] + made[1], 0):
             raise AssertionError(f"serve {variant}: attention launches by "
-                                 f"route {by_route}, expected all on mma")
+                                 f"route {by_route}, expected all on wgmma")
         pe_by_route = {r: pe.route_launches[r] - pe_routes[r]
                        for r in pe_routes}
         if pe_by_route != {"wgmma": made[2], "simt": 0}:
@@ -1054,8 +1163,7 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
                                              "fused", dev), device=dev)
     state = trainer.init_state(train.steps_per_epoch())
     batches = iter(train)
-    attn.launches = attn.bwd_launches = 0
-    attn.route_launches.update(mma=0, simt=0)
+    zero_counts(attn)
     for i in range(steps):
         before = (attn.launches, attn.bwd_launches)
         count = state.optimizer.count
@@ -1072,10 +1180,11 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
             raise AssertionError(f"step {i + 1}: K1/K2 launches {made}, "
                                  f"expected {layers} each")
     launches = (attn.launches, attn.bwd_launches)
-    if attn.route_launches != {"mma": sum(launches), "simt": 0}:
+    if attn.route_launches != model_routes(*launches):
         raise AssertionError(f"train: K1/K2 launches by route "
-                             f"{attn.route_launches}, expected all "
-                             f"{sum(launches)} on mma")
+                             f"{attn.route_launches}, expected K1 "
+                             f"{launches[0]} on wgmma, K2 {launches[1]} on "
+                             "mma")
     batches.close()
     out = trainer.evaluate(val)
     if not (np.isfinite(out["val_loss"]) and 0 <= out["val_acc"] <= 1):
@@ -1265,8 +1374,7 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
     tr_idx, va_idx = random_split(len(index), cfg.train_split, cfg.seed)
     steps = len(tr_idx) // cfg.global_batch_size
     val_batches = -(-len(va_idx) // cfg.global_batch_size)
-    attn.launches = attn.bwd_launches = 0
-    attn.route_launches.update(mma=0, simt=0)
+    zero_counts(attn)
     t0 = time.perf_counter()
     trainer = ntrain.main([*argv, "--no-resume"])
     fit_secs = time.perf_counter() - t0
@@ -1275,8 +1383,7 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
     print(f"ntrain fit, 1 epoch: {steps} steps + {val_batches} val batches, "
           f"K1/K2 launches {launches} (expected {expect}), by route "
           f"{attn.route_launches}, {fit_secs:.2f} s")
-    if launches != expect or attn.route_launches != {"mma": sum(launches),
-                                                     "simt": 0}:
+    if launches != expect or attn.route_launches != model_routes(*launches):
         raise AssertionError("ntrain fit: K1/K2 launches or routes")
     records = [r for r in fit_records("log", cfg.train_id) if "epoch" in r]
     if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
@@ -1833,8 +1940,9 @@ def phase_studies(torch, attn, study):
                 errs[key] = err
                 plain[key] = cuda_ms(reference)
         if not torch.equal(study.slab_attention_peel_forward(qkv, h, "full"),
-                           attn.slab_attention_forward(qkv, h)):
-            raise AssertionError(f"fwd full, B {b}: differs from K1")
+                           study.softmax_variant_forward(qkv, h, True, False)):
+            raise AssertionError(f"fwd full, B {b}: differs from the "
+                                 "mma.sync forward")
         if not torch.equal(
                 study.slab_attention_peel_backward(qkv, g, h, "full"),
                 attn.slab_attention_backward(qkv, g, h)):
@@ -1847,8 +1955,8 @@ def phase_studies(torch, attn, study):
                 torch, (leaf,), leaf.view(b, n, 3, h, c // h).unbind(2), g)
     print(f"S5 and S6 vs plain at B {STUDY_BATCHES}: dma, layout and the "
           f"copies bit-equal; matmul and full within {TOL['bfloat16']} and "
-          f"{REL_TOL['bfloat16']} in norm; full bit-equal to K1 and K2; max "
-          f"|diff| at B 64 {errs}")
+          f"{REL_TOL['bfloat16']} in norm; full bit-equal to the mma.sync "
+          f"forward and K2; max |diff| at B 64 {errs}")
 
     at64 = {r["batch"]: r for r in peels}[64]
     copies64 = {r["batch"]: r for r in copies}[64]["variants"]
@@ -1920,11 +2028,12 @@ def phase_tile_studies(torch, attn, study):
           f"tiles {list(bwd.values())}, softmax variants {soft}")
     for name, recs in records.items():
         for rec in recs:
-            k1_twin = name != "S2" or (rec.get("exp2") and not rec["post_mul"])
+            mma_twin = name != "S2" or (rec.get("exp2") and not rec["post_mul"])
             if "baseline" not in rec and (
-                    (k1_twin and not rec["fwd_bit_equal_k1"])
+                    (mma_twin and not rec["fwd_bit_equal_mma"])
                     or rec.get("bwd_bit_equal_k2") is False):
-                raise AssertionError(f"{name} {rec}: not bit-equal to K1/K2")
+                raise AssertionError(f"{name} {rec}: not bit-equal to the "
+                                     "mma.sync forward / K2")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -1935,15 +2044,16 @@ def phase_tile_studies(torch, attn, study):
     for b, n in shapes:
         qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(bf16)
         g = torch.randn(b, n, c, generator=gen, device=dev).to(bf16)
-        k1 = attn.slab_attention_forward(qkv, h)
+        mma_fwd = study.softmax_variant_forward(qkv, h, True, False)
         k2 = attn.slab_attention_backward(qkv, g, h)
         plain_fwd = attn.slab_attention_reference(qkv, h)
         plain_bwd = attn.slab_attention_backward_reference(qkv, g, h)
         for tile in fwd_tiles:
             out = study.slab_attention_tile_forward(qkv, h, tile)
             torch.cuda.synchronize()
-            if not torch.equal(out, k1):
-                raise AssertionError(f"fwd {tile}, B {b} N {n}: differs from K1")
+            if not torch.equal(out, mma_fwd):
+                raise AssertionError(f"fwd {tile}, B {b} N {n}: differs from "
+                                     "the mma.sync forward")
             check_close(torch, f"fwd {tile}", out, plain_fwd, bf16,
                         verbose=False)
         for tile in bwd_tiles:
@@ -1959,9 +2069,9 @@ def phase_tile_studies(torch, attn, study):
             check_close(torch, f"softmax {key}", out,
                         study.softmax_variant_reference(qkv, h, *key), bf16,
                         verbose=False)
-            if key == (True, False) and not torch.equal(out, k1):
+            if key == (True, False) and not torch.equal(out, mma_fwd):
                 raise AssertionError(f"softmax {key}, B {b} N {n}: differs "
-                                     "from K1")
+                                     "from its first launch")
     lib = attn.load_library()
     for tile in (*fwd_tiles, *bwd_tiles):
         for backward in (False, True):
@@ -1988,12 +2098,11 @@ def phase_tile_studies(torch, attn, study):
                 raise
         else:
             raise AssertionError(f"a tile at N {TILE_TOO_LONG} did not raise")
-    print(f"S1-S4 at (B, N) {shapes}: every tile bit-equal to K1 (forward) "
-          f"and K2 (backward) and within {TOL['bfloat16']} and "
-          f"{REL_TOL['bfloat16']} in norm of the plain versions; the S2 "
-          "variants within the same bounds of theirs, exp2 without post_mul "
-          f"bit-equal to K1; N {TILE_TOO_LONG} raises; tile_smem_bytes equals "
-          "the C sums")
+    print(f"S1-S4 at (B, N) {shapes}: every tile bit-equal to the mma.sync "
+          f"forward (S2's exp2 without post_mul) and K2 (backward) and within "
+          f"{TOL['bfloat16']} and {REL_TOL['bfloat16']} in norm of the plain "
+          "versions; the S2 variants within the same bounds of theirs; N "
+          f"{TILE_TOO_LONG} raises; tile_smem_bytes equals the C sums")
 
     replaces = {("S1", "fwd"): "tools/bench_attn4.py:50",
                 ("S2", "fwd"): "tools/bench_attn6.py:55",
@@ -2059,20 +2168,20 @@ def phase_tile_studies(torch, attn, study):
 def zero_counts(attn) -> None:
     """Set K1's and K2's launch counts and routes to 0 before a path."""
     attn.launches = attn.bwd_launches = 0
-    attn.route_launches.update(mma=0, simt=0)
+    zero_routes(attn)
 
 
 def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
     """K1's and K2's launches since :func:`zero_counts`: they must be
-    ``expect``, every one on the mma route (bf16)."""
+    ``expect``, every forward on the wgmma route and every backward on mma
+    (bf16)."""
     made = (attn.launches, attn.bwd_launches)
     print(f"{what}: K1/K2 launches {made} (expected {expect}), by route "
           f"{attn.route_launches}")
-    if made != expect or attn.route_launches != {"mma": sum(made),
-                                                 "simt": 0}:
+    if made != expect or attn.route_launches != model_routes(*made):
         raise AssertionError(f"{what}: K1/K2 launches {made}, routes "
-                             f"{attn.route_launches}, expected {expect} on "
-                             "mma")
+                             f"{attn.route_launches}, expected {expect} "
+                             "(forwards on wgmma, backwards on mma)")
     return made
 
 
@@ -2520,7 +2629,8 @@ def phase_vit_b_kernels(torch, attn) -> list[dict]:
                 library_ms=cuda_ms(lambda: sdpa(torch, *views)),
                 library_device_ms=device_ms(lambda: sdpa(torch, *views)))
             out = on_route(attn, torch.bfloat16, 1,
-                           lambda: attn.slab_attention_backward(qkv, g, h))
+                           lambda: attn.slab_attention_backward(qkv, g, h),
+                           BWD_ROUTES)
             err = check_close(torch, f"K2 vs plain, ViT-B B {b}", out,
                               attn.slab_attention_backward_reference(
                                   qkv, g, h), torch.bfloat16)
@@ -3092,7 +3202,8 @@ def phase_dp(torch, attn, create_model, Trainer, data: str, work: str,
     outs = spawn_ranks("dp", 2, work, data)
     for r, o in enumerate(outs):
         if o["launches"] != [DP_K1 * DP_STEPS] * 2 or \
-                o["routes"] != {"mma": 2 * DP_K1 * DP_STEPS, "simt": 0}:
+                o["routes"] != model_routes(DP_K1 * DP_STEPS,
+                                            DP_K1 * DP_STEPS):
             raise AssertionError(f"dp rank {r}: K1/K2 {o['launches']} "
                                  f"routes {o['routes']}")
         print(f"phase 16(b) ViT-L DP rank {r} of 2 (gloo, bf16, batch "
@@ -3142,7 +3253,7 @@ def phase_ep(torch, attn, serve, create_model, Trainer, data: str,
     outs = spawn_ranks("ep", 2, work, data)
     for r, o in enumerate(outs):
         if o["launches"] != [EP_K1, EP_K1] or \
-                o["routes"] != {"mma": 2 * EP_K1, "simt": 0}:
+                o["routes"] != model_routes(EP_K1, EP_K1):
             raise AssertionError(f"ep rank {r}: K1/K2 {o['launches']} "
                                  f"routes {o['routes']}")
         print(f"phase 16(b) ResMoE EP rank {r} of 2 (4 experts + gate): "
@@ -4003,7 +4114,7 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
 
-    stats = {"K1": phase_kernels(torch, attn),
+    stats = {"K1": phase_kernels(torch, attn, study),
              "K2": phase_backward(torch, attn),
              **phase_three_operand_kernels(torch, attn),
              "K5": phase_patch_embed(torch, pe)}
@@ -4061,7 +4172,7 @@ def main() -> int:
     csrc = "touhouimageclassification_tpu_torch/csrc/"
     ref = "touhouimageclassification_tpu/ops/"
     kernels = [
-        ("K1", "slab_attention_fwd", "slab_attention_fwd.cu",
+        ("K1", "slab_attention_fwd", "slab_attention_fwd_sm90.cu",
          "attention.py:455", {"serve": serve_launches,
                               "train": train_launches[0],
                               "fit": fit_launches[0],
@@ -4082,22 +4193,25 @@ def main() -> int:
                                  multi_launches.items() if k2},
                               **{path: k2 for path, (_, k2) in
                                  option_launches.items() if k2}}, "fit"),
-        ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd.cu",
+        ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd_sm90.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),
         ("K3 bwd", "packed_attention_bwd", "slab_attention_bwd.cu",
          "attention.py:309", {"packed_attention": packed_launches[1]},
          "packed_attention"),
-        ("K4", "flash_attention_fwd", "slab_attention_fwd.cu",
+        ("K4", "flash_attention_fwd", "slab_attention_fwd_sm90.cu",
          "attention.py:38", {"serve": flash_serve[0],
                              "train": flash_train[0]}, "train"),
         ("K5", "patch_embed", "patch_embed.cu", "patch_embed.py:22",
          {"serve": flash_serve[1], "train": flash_train[1]}, "train"),
     ]
-    # the device route each wrapper names for ViT-L's shapes, by dtype
+    # the device route each wrapper names for ViT-L's shapes, by dtype (the
+    # forwards' bf16 launches at other head dims or N > 256 go to mma, in
+    # slab_attention_fwd.cu, as their f32 launches do to simt)
     device_routes = {
         key: {dtype_key(dt): (pe.kernel_route(dt, 16, 3, 224) if key == "K5"
-                              else attn.kernel_route(dt, 64))
+                              else attn.kernel_route(dt, 64, 197,
+                                                     key in ("K2", "K3 bwd")))
               for dt in (torch.bfloat16, torch.float32)}
         for key in stats}
     # K1 and K2 at the mixtures' ViT-B shapes (phase 15), by batch

@@ -332,18 +332,41 @@ def test_flash_takes_the_models_slab_views():
 
 H100_SMEM_OPTIN = 232448  # bytes one block may opt in to on an H100
 # the bf16 shape sweep of chip_smoke.py: (B 1, two heads) at every N and D
-SWEEP = [(n, d) for d in (32, 64, 128) for n in (1, 16, 67, 197, 257, 577)]
+SWEEP = [(n, d) for d in (32, 64, 128)
+         for n in (1, 16, 67, 197, 256, 257, 577)]
 
 
-@pytest.mark.parametrize("dtype,d,route", [
-    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"),
-    (torch.bfloat16, 128, "mma"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+@pytest.mark.parametrize("dtype,d,backward,route", [
+    (torch.bfloat16, 32, False, "mma"), (torch.bfloat16, 64, False, "wgmma"),
+    (torch.bfloat16, 128, False, "mma"), (torch.float32, 32, False, "simt"),
+    (torch.float32, 64, False, "simt"), (torch.float32, 128, False, "simt"),
+    (torch.bfloat16, 32, True, "mma"), (torch.bfloat16, 64, True, "mma"),
+    (torch.bfloat16, 128, True, "mma"), (torch.float32, 64, True, "simt"),
 ])
-def test_kernel_route_by_dtype(dtype, d, route):
-    """bf16 takes the tensor-core route, f32 the SIMT route, at every head
-    dim the kernels take."""
-    assert port.kernel_route(dtype, d) == route
+def test_kernel_route_by_dtype(dtype, d, backward, route):
+    """At the models' N 197: the bf16 forward at head dim 64 takes the Hopper
+    wgmma route; every other bf16 launch (head dims 32 and 128, every
+    backward) the mma.sync route; f32 the SIMT route, at every head dim the
+    kernels take."""
+    assert port.kernel_route(dtype, d, 197, backward) == route
+
+
+def test_wgmma_route_takes_every_n_up_to_256():
+    """The bf16 forward at head dim 64 runs on wgmma for every N from one
+    token to 256 (its scores stay in registers); N 257 and past go to mma,
+    as does the backward at every N."""
+    for n in range(1, 257):
+        assert port.kernel_route(torch.bfloat16, 64, n) == "wgmma", n
+        assert port.kernel_route(torch.bfloat16, 64, n, backward=True) == "mma"
+    for n in (257, 577, 1025):
+        assert port.kernel_route(torch.bfloat16, 64, n) == "mma", n
+    assert port.WGMMA_MAX_N == 256
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("n", [1, 197, 256, 257])
+def test_other_head_dims_stay_on_mma(n, d):
+    assert port.kernel_route(torch.bfloat16, d, n) == "mma"
 
 
 @pytest.mark.parametrize("dtype,d,error", [
@@ -353,7 +376,7 @@ def test_kernel_route_by_dtype(dtype, d, route):
 ])
 def test_kernel_route_raises_outside_the_kernels(dtype, d, error):
     with pytest.raises(error):
-        port.kernel_route(dtype, d)
+        port.kernel_route(dtype, d, 197)
 
 
 @pytest.mark.parametrize("n,d", SWEEP)
@@ -381,6 +404,22 @@ def test_smem_at_vit_l_shapes():
         2 * 197 * 66 * 4 + 3 * 197 * 4 + 8 * 197 * 4)
 
 
+@pytest.mark.parametrize("n", [1, 197, 256])
+def test_wgmma_route_fits_shared_memory(n):
+    """The wgmma route's block holds two ring stages of four 64-row tiles of
+    Q, K and V, two output stagings and four mbarriers, aligned to 1 KB:
+    214,048 bytes at any N it takes (the C function's value), under an
+    H100 block's opt-in."""
+    need = port.kernel_smem_bytes("wgmma", False, n, 64)
+    assert need == 1024 + 2 * 3 * 4 * 8192 + 2 * 8192 + 32 == 214048
+    assert need <= H100_SMEM_OPTIN
+
+
+def test_route_launches_counts_every_route():
+    assert set(port.route_launches) == {"wgmma", "mma", "simt"}
+    assert set(port._ALIGN) == set(port.route_launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensors_count_no_route(dtype):
     """The plain versions on the CPU launch nothing: no route counts."""
@@ -390,12 +429,24 @@ def test_cpu_tensors_count_no_route(dtype):
     port.slab_attention_forward(x, 4)
     port.slab_attention_backward(x, g, 4)
     port.packed_attention_forward(*x.split(64, -1), 4)
+    port.flash_attention_forward(*x.view(1, 9, 3, 4, 16).unbind(2))
     assert port.route_launches == before
 
 
-def _on_route(dtype, launches, run):
-    """run() on the card; its launches must all take the dtype's route."""
-    want = port.kernel_route(dtype, 64)
+def test_wgmma_route_has_no_cpu_mode():
+    """On the CPU the forward is the plain version whatever the route would
+    be: a bf16 D 64 slab counts nothing on 'wgmma' and equals the
+    reference bit for bit."""
+    x = torch.from_numpy(_slab(2, 17, 128, seed=37)).to(torch.bfloat16)
+    assert port.kernel_route(x.dtype, 64, 17) == "wgmma"
+    before = (port.launches, dict(port.route_launches))
+    out = port.slab_attention_forward(x, 2)
+    assert (port.launches, port.route_launches) == before
+    assert torch.equal(out, port.slab_attention_reference(x, 2))
+
+
+def _on_route(want, launches, run):
+    """run() on the card; its launches must all take the route ``want``."""
     before = dict(port.route_launches)
     out = run()
     torch.cuda.synchronize()
@@ -411,8 +462,12 @@ _GPU_CASES = [
 ]
 
 
+def _route(n, c, heads, dtype, backward=False):
+    return port.kernel_route(dtype, c // heads, n, backward)
+
+
 def _fits(n, c, heads, dtype, backward):
-    route = port.kernel_route(dtype, c // heads)
+    route = _route(n, c, heads, dtype, backward)
     return port.kernel_smem_bytes(route, backward, n, c // heads) <= (
         H100_SMEM_OPTIN)
 
@@ -436,11 +491,12 @@ def test_three_operand_kernels_match_plain_on_gpu(require_cuda, b, n, c, heads,
         return
     before = (port.packed_launches, port.packed_bwd_launches,
               port.flash_launches)
-    out = _on_route(dtype, 1, lambda: port.packed_attention_forward(
+    fwd = _route(n, c, heads, dtype)
+    out = _on_route(fwd, 1, lambda: port.packed_attention_forward(
         q, k, v, heads))
-    grads = _on_route(dtype, 1, lambda: port.packed_attention_backward(
-        q, k, v, g, heads))
-    flash = _on_route(dtype, 1, lambda: port.flash_attention_forward(*views))
+    grads = _on_route(_route(n, c, heads, dtype, True), 1,
+                      lambda: port.packed_attention_backward(q, k, v, g, heads))
+    flash = _on_route(fwd, 1, lambda: port.flash_attention_forward(*views))
     assert (port.packed_launches, port.packed_bwd_launches,
             port.flash_launches) == tuple(x + 1 for x in before)
     torch.testing.assert_close(
@@ -475,7 +531,8 @@ def test_backward_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads,
             port.slab_attention_backward(x, g, heads)
         return
     before = port.bwd_launches
-    out = _on_route(dtype, 1, lambda: port.slab_attention_backward(x, g, heads))
+    out = _on_route(_route(n, c, heads, dtype, True), 1,
+                    lambda: port.slab_attention_backward(x, g, heads))
     assert port.bwd_launches == before + 1
     torch.testing.assert_close(
         out.float(), port.slab_attention_backward_reference(x, g, heads).float(),
@@ -499,11 +556,60 @@ def test_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads, dtype):
             port.slab_attention(x, heads)
         return
     before = port.launches
-    out = _on_route(dtype, 1, lambda: port.slab_attention(x, heads))
+    out = _on_route(_route(n, c, heads, dtype), 1,
+                    lambda: port.slab_attention(x, heads))
     assert port.launches == before + 1
     torch.testing.assert_close(out.float(),
                                port.slab_attention_reference(x, heads).float(),
                                **tol)
+
+
+# The wgmma route's shapes on the card: ViT-L's and ViT-B's widths at the
+# serve buckets and the train batch, and ragged N from one token to 256.
+_WGMMA_CASES = [
+    (64, 197, 1024, 16), (1, 197, 1024, 16), (64, 197, 768, 12),
+    (2, 197, 768, 12), (4, 197, 768, 12),
+    *((3, n, 256, 4) for n in (1, 16, 67, 197, 256)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", _WGMMA_CASES)
+def test_wgmma_route_matches_plain_on_gpu(require_cuda, b, n, c, heads):
+    """K1 on the wgmma route (bf16, D 64, N <= 256) against the plain
+    version within the bf16 bounds of the other kernels (P and O rounded to
+    bf16, 2^-8 steps), and in norm within 1e-3; two launches bit-equal (no
+    atomics, a fixed order)."""
+    x = torch.from_numpy(_slab(b, n, c, seed=41)).to("cuda", torch.bfloat16)
+    out = _on_route("wgmma", 1, lambda: port.slab_attention_forward(x, heads))
+    ref = port.slab_attention_reference(x, heads).float()
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    assert ((out.float() - ref).norm() / ref.norm()).item() < 1e-3
+    again = port.slab_attention_forward(x, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", _WGMMA_CASES)
+def test_wgmma_route_on_strided_views_on_gpu(require_cuda, b, n, c, heads):
+    """K4 on the q, k, v views of a QKV slab (row stride 3C, one tensor map
+    an operand) and K3 on three dense operands, both on the wgmma route,
+    equal K1 on the slab bit for bit (the same device code on the same
+    values) and stay within the bf16 bounds of the plain version."""
+    x = torch.from_numpy(_slab(b, n, c, seed=42)).to("cuda", torch.bfloat16)
+    views = x.view(b, n, 3, heads, c // heads).unbind(2)
+    assert views[1].stride(1) == 3 * c
+    flash = _on_route("wgmma", 1, lambda: port.flash_attention_forward(*views))
+    packed = _on_route("wgmma", 1, lambda: port.packed_attention_forward(
+        *(y.contiguous() for y in x.split(c, -1)), heads))
+    k1 = port.slab_attention_forward(x, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(flash.reshape(b, n, c), k1)
+    assert torch.equal(packed, k1)
+    torch.testing.assert_close(
+        flash.float(), port.flash_attention_reference(*views).float(),
+        atol=2e-2, rtol=2e-2)
 
 
 @pytest.fixture

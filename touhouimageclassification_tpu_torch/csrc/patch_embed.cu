@@ -57,6 +57,9 @@
 // there was not measured (no profiler of the SMs); each block runs only 12
 // slabs, so the ring's fill and drain and the epilogue are a large share.
 //
+// The wgmma, descriptor, mbarrier, TMA and tensor-map helpers are sm90.cuh's,
+// shared with the attention forward's wgmma route.
+//
 // f32, the route named 'simt' (patch_embed_simt_kernel). The tensor cores take
 // f32 only as TF32, which would break the f32 bound the kernel is held to, so
 // f32 stays on FMAs: blocks of 256 threads compute a 128 x 128 tile, each k
@@ -73,6 +76,7 @@
 #include <atomic>
 
 #include "slab_attention_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -195,6 +199,8 @@ int launch(const void* images, const void* weight, const void* bias, void* out, 
 
 namespace tc {
 
+using namespace tic::sm90;
+
 constexpr int kTileM = 128;                    // two warpgroups of 64 rows
 constexpr int kSlabK = 64;                     // k per stage: one 128-byte row
 constexpr int kRowBytes = kSlabK * 2;
@@ -212,94 +218,6 @@ static_assert(kTileM * kOutPitch * 2 <= kStages * kStageBytes, "output stage");
 // Dynamic shared memory of one block: the stages, one mbarrier each, and the
 // slack to align the stages on the 1024 bytes the 128-byte swizzle repeats at.
 constexpr size_t kSmemBytes = 1024 + kStages * kStageBytes + 8 * kStages;
-
-// wgmma.mma_async m64n128k16, bf16 in, f32 sums accumulated into d.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor of a K-major operand in the 128-byte swizzle:
-// rows of 128 bytes, groups of 8 rows 1024 bytes apart (stride byte offset),
-// the leading byte offset unused (1), layout type 1 (128B) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the mbarrier has completed.
-// A phase that never completes (a miscounted barrier) traps after 2^32
-// cycles (~2 s) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (uint32_t done = 0; !done;) {
-    if (clock64() - start > (1ll << 32)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box at (c0 innermost, c1) of the tensor map into shared memory at
-// `dst`, completing `bytes` of the mbarrier's transaction count.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Makes this thread's shared-memory writes (cp.async) visible to the async
-// proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across wgmma.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // Epilogue of the 128 x 128 tile, once both warpgroups are done with the
 // stages. Accumulator layout of m64n128k16 (warp q of the warpgroup,
@@ -354,7 +272,7 @@ __device__ __forceinline__ void mma_slab(float (&acc)[64], uint32_t stage, int w
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int kk = 0; kk < kSlabK / 16; ++kk)
-    wgmma_m64n128k16(acc, a_desc + 2 * kk, b_desc + 2 * kk);
+    wgmma_ss(acc, a_desc + 2 * kk, b_desc + 2 * kk, 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
@@ -378,8 +296,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int d0 = blockIdx.x * kBlockN;
 
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&w_map))
-                 : "memory");
+    prefetch_tensormap(&w_map);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&full[s]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -457,25 +374,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   __syncthreads();  // both warpgroups are done with the stages
   store_tile(acc, smem, bias, out, m0, d0, m_total, d);
-}
-
-// cuTensorMapEncodeTiled from the driver, looked up once through the runtime.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // The route's limits: 16-byte image chunks inside one (pw, c) run and one

@@ -23,6 +23,11 @@
 //
 // Two routes, one per dtype, both written here; the C entry points pick by
 // the dtype code and a launch the route cannot take fails, nothing falls back.
+// The model's bf16 shapes (head dim 64, N <= 256: every preset) do not come
+// here: ops/attention.py::kernel_route sends them to the Hopper kernel of
+// slab_attention_fwd_sm90.cu (route 'wgmma'). The bf16 kernel below serves
+// the other bf16 shapes (head dims 32 and 128, N > 256) and the kernel
+// studies, which dissect it (tic_attention_fwd_variant, _peel, _softmax).
 //
 // bf16: attention_fwd_mma_kernel, on the tensor cores (mma.sync m16n8k16,
 // bf16 in, f32 accumulation). Grid (ceil(N / 64), H, B), 4 warps, each owning
@@ -63,7 +68,8 @@
 // device-memory bytes (each q, k, v, o row once: 0.031 ms at batch 64 bf16).
 // The roofline peels (tic_attention_fwd_peel, tools/roofline_attn.py)
 // attribute the bf16 kernel's 0.12 ms of device time at batch 64 (NVIDIA H100
-// 80GB HBM3, 700 W; PERF.md): the staging 44% (each of a head's
+// 80GB HBM3, 700 W; PERF.md), the losses the wgmma route was designed
+// against: the staging 44% (each of a head's
 // ceil(N / 64) row blocks stages all of K_h and V_h, 2.5x the unique bytes,
 // and waits for K before its first product); the softmax between the
 // products (an exp2 per score, twice) 31%; the ldmatrix fragment loads 9%;

@@ -1,5 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: attention forward
-and backward, patch embedding, and the kernel studies' slab null copy and
+(the ``mma.sync`` / SIMT source and the Hopper ``wgmma`` source) and
+backward, patch embedding, and the kernel studies' slab null copy and
 attention tiles) with ``nvcc`` + ctypes.
 
 Each source compiles to an object file, all of them at once (one ``nvcc``
@@ -100,6 +101,14 @@ def load_library() -> ctypes.CDLL:
     lib.tic_attention_fwd.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32, i32,
                                       i32, i32, i32, f32, ptr]
     lib.tic_attention_fwd.restype = i32
+    lib.tic_slab_attention_fwd_sm90.argtypes = [ptr, ptr, i32, i32, i32, i32,
+                                                f32, ptr]
+    lib.tic_slab_attention_fwd_sm90.restype = i32
+    lib.tic_attention_fwd_sm90.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32,
+                                           i32, i32, i32, f32, ptr]
+    lib.tic_attention_fwd_sm90.restype = i32
+    lib.tic_slab_attention_fwd_sm90_smem_bytes.argtypes = [i32, i32]
+    lib.tic_slab_attention_fwd_sm90_smem_bytes.restype = ctypes.c_size_t
     lib.tic_attention_fwd_variant.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32,
                                               i32, i32, i32, f32, i32, i32, ptr]
     lib.tic_attention_fwd_variant.restype = i32

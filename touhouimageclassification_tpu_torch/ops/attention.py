@@ -21,15 +21,19 @@ wrappers take their plain version only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises:
 
 - K1 :func:`slab_attention_forward`, K3 :func:`packed_attention_forward` and
-  K4 :func:`flash_attention_forward` launch ``csrc/slab_attention_fwd.cu``,
-  which reads q, k and v through three base pointers and a row stride;
+  K4 :func:`flash_attention_forward` launch ``csrc/slab_attention_fwd_sm90.cu``
+  or ``csrc/slab_attention_fwd.cu``, which read q, k and v through three
+  base pointers (or tensor maps) and a row stride;
 - K2 :func:`slab_attention_backward` and K3 :func:`packed_attention_backward`
   launch ``csrc/slab_attention_bwd.cu`` the same way.
 
-Each source has two routes, one per dtype (:func:`kernel_route`): bf16
-runs on the tensor cores (``mma.sync`` fed by ``cp.async``), f32 on SIMT
-FMAs (tensor cores take f32 only as TF32). A launch the route cannot take
-raises; nothing falls back.
+The device route is a rule on the shape (:func:`kernel_route`): the bf16
+forward at head dim 64 and N <= 256 (every model preset) runs the Hopper
+kernel ``'wgmma'`` (TMA loads, warp-specialised ``wgmma``, scores held in
+registers); other bf16 shapes and every backward run on the tensor cores
+through ``mma.sync`` fed by ``cp.async`` (``'mma'``); f32 runs on SIMT FMAs
+(``'simt'``; tensor cores take f32 only as TF32). A launch the route cannot
+take raises; nothing falls back.
 
 ``launches``, ``bwd_launches`` (K1, K2), ``packed_launches``,
 ``packed_bwd_launches`` (K3) and ``flash_launches`` (K4) count launches, and
@@ -48,14 +52,19 @@ bwd_launches = 0
 packed_launches = 0
 packed_bwd_launches = 0
 flash_launches = 0
-route_launches = {"mma": 0, "simt": 0}
+route_launches = {"wgmma": 0, "mma": 0, "simt": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
 _HEAD_DIMS = (32, 64, 128)
-# Bytes a kernel reads at once: the mma route stages 16-byte chunks with
-# cp.async, the SIMT route reads element pairs (float2).
-_ALIGN = {"mma": 16, "simt": 8}
+# The wgmma route's shapes: the bf16 forward at this head dim and at most
+# this many tokens (its scores stay in registers, 64 x N f32 a warpgroup).
+WGMMA_HEAD_DIM = 64
+WGMMA_MAX_N = 256
+# Bytes a kernel reads at once: the wgmma route's TMA needs 16-byte aligned
+# bases and strides, the mma route stages 16-byte chunks with cp.async, the
+# SIMT route reads element pairs (float2).
+_ALIGN = {"wgmma": 16, "mma": 16, "simt": 8}
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -157,29 +166,42 @@ def slab_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
     return torch.cat([x.reshape(b, n, c3 // 3) for x in grads], dim=-1)
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The device route the attention kernels take for ``dtype``: ``'mma'``
-    (bf16, tensor cores) or ``'simt'`` (f32). Raises for any other dtype or
-    a head dim outside ``(32, 64, 128)``."""
+def kernel_route(dtype: torch.dtype, head_dim: int, n: int,
+                 backward: bool = False) -> str:
+    """The device route an attention launch takes for ``dtype``, head dim,
+    N tokens and direction: ``'wgmma'`` (the bf16 forward at head dim 64 and
+    N <= 256: TMA + ``wgmma``), ``'mma'`` (every other bf16 launch:
+    ``mma.sync``) or ``'simt'`` (f32). Raises for any other dtype or a head
+    dim outside ``(32, 64, 128)``."""
     if dtype not in _ROUTES:
         raise TypeError(f"attention kernels take float32 or bfloat16, got "
                         f"{dtype}")
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"attention kernels take head dims {_HEAD_DIMS}, got "
                          f"{head_dim}")
+    if (dtype == torch.bfloat16 and not backward
+            and head_dim == WGMMA_HEAD_DIM and n <= WGMMA_MAX_N):
+        return "wgmma"
     return _ROUTES[dtype]
 
 
 def kernel_smem_bytes(route: str, backward: bool, n: int, d: int) -> int:
     """Dynamic shared memory one block of the forward (or the larger pass of
     the backward) needs at N rows and head dim D; the same sums as the C
-    functions ``tic_slab_attention_{fwd,bwd}_smem_bytes``.
+    functions ``tic_slab_attention_{fwd,bwd}_smem_bytes`` and
+    ``tic_slab_attention_fwd_sm90_smem_bytes``.
 
+    - wgmma (forward only, any N it takes): two ring stages of four 64-row
+      tiles each of Q, K and V (8 KB a tile), two 8 KB output stagings, four
+      mbarriers and 1 KB to align the tiles to 1024 bytes;
     - mma: K and V (backward pass 2: Q and g) of all N rows in bf16 at a
       pitch of D + 8, N rounded up to 16 and at least 64; pass 2 adds three
       f32 statistics per row;
     - simt: two head operands in f32 at a pitch of D + 2, plus f32 rows of
       scores per warp (forward one, backward two, and pass 2's statistics)."""
+    if route == "wgmma":
+        tile = 64 * d * 2
+        return 1024 + 2 * 3 * 4 * tile + 2 * tile + 4 * 8
     if route == "mma":
         rows = max(-(-n // 16) * 16, 64)
         return 2 * rows * (d + 8) * 2 + (3 * rows * 4 if backward else 0)
@@ -187,17 +209,20 @@ def kernel_smem_bytes(route: str, backward: bool, n: int, d: int) -> int:
     return operands + (3 * n * 4 + 4 * 2 * n * 4 if backward else 4 * n * 4)
 
 
-def _check_heads(name: str, dtype: torch.dtype, c: int, num_heads: int) -> str:
+def _check_heads(name: str, dtype: torch.dtype, c: int, num_heads: int, n: int,
+                 backward: bool) -> str:
     if c % num_heads:
         raise ValueError(f"{name}: C={c} does not split into {num_heads} heads")
-    return kernel_route(dtype, c // num_heads)
+    return kernel_route(dtype, c // num_heads, n, backward)
 
 
-def _check_kernel_args(name: str, x: torch.Tensor, num_heads: int) -> str:
+def _check_kernel_args(name: str, x: torch.Tensor, num_heads: int,
+                       backward: bool) -> str:
     if x.dim() != 3 or x.shape[-1] % 3:
         raise ValueError(f"{name} expects a (B, N, 3C) slab, got "
                          f"{tuple(x.shape)}")
-    route = _check_heads(name, x.dtype, x.shape[-1] // 3, num_heads)
+    route = _check_heads(name, x.dtype, x.shape[-1] // 3, num_heads,
+                         x.shape[1], backward)
     _check_dense(name, x, route)
     return route
 
@@ -239,18 +264,23 @@ def slab_attention_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return slab_attention_reference(qkv, num_heads)
     _require_cuda("slab_attention", qkv)
-    route = _check_kernel_args("slab_attention", qkv, num_heads)
+    route = _check_kernel_args("slab_attention", qkv, num_heads, False)
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
-    code = _DTYPE_CODES[qkv.dtype]
     lib = load_library()
     with torch.cuda.device(qkv.device):
         _check_smem("slab_attention", lib, route, False, qkv, d, "K and V")
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.tic_slab_attention_fwd(qkv.data_ptr(), out.data_ptr(), b, n,
-                                         num_heads, d, code, d ** -0.5, stream)
+        if route == "wgmma":
+            err = lib.tic_slab_attention_fwd_sm90(
+                qkv.data_ptr(), out.data_ptr(), b, n, num_heads, d, d ** -0.5,
+                stream)
+        else:
+            err = lib.tic_slab_attention_fwd(
+                qkv.data_ptr(), out.data_ptr(), b, n, num_heads, d,
+                _DTYPE_CODES[qkv.dtype], d ** -0.5, stream)
     if err:
         raise RuntimeError(f"slab_attention kernel launch failed with CUDA "
                            f"error {err} (B={b}, N={n}, H={num_heads}, D={d}, "
@@ -273,7 +303,8 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return slab_attention_backward_reference(qkv, g, num_heads)
     _require_cuda("slab_attention_backward", qkv)
-    route = _check_kernel_args("slab_attention_backward", qkv, num_heads)
+    route = _check_kernel_args("slab_attention_backward", qkv, num_heads,
+                               True)
     b, n, c3 = qkv.shape
     c = c3 // 3
     if g.device != qkv.device or g.dtype != qkv.dtype or g.shape != (b, n, c):
@@ -334,14 +365,16 @@ def slab_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 # --- the three-operand form: K3 (three (B, N, C)) and K4 ((B, N, H, D)) -----
 
-def _rows(name: str, xs: tuple[torch.Tensor, ...], num_heads: int):
+def _rows(name: str, xs: tuple[torch.Tensor, ...], num_heads: int,
+          backward: bool):
     """Checks q, k, v (and g) of one shape (B, N, C) or (B, N, H, D) for the
     three-operand kernels; returns them with their shared batch and row
-    strides, and the route. Each row's C = H*D elements must be dense, and
-    the strides shared and whole multiples of the route's read (16 bytes for
-    mma, an element pair for simt); views that are not, such as a
-    transposed tensor, are copied to contiguous ones. The model's q, k, v
-    views of the (B, N, 3C) slab pass as they are, row stride 3C."""
+    strides, and the route of the launch (``backward`` or the forward).
+    Each row's C = H*D elements must be dense, and the strides shared and
+    whole multiples of the route's read (16 bytes for wgmma and mma, an
+    element pair for simt); views that are not, such as a transposed
+    tensor, are copied to contiguous ones. The model's q, k, v views of the
+    (B, N, 3C) slab pass as they are, row stride 3C."""
     x = xs[0]
     if any(y.shape != x.shape or y.dtype != x.dtype or y.device != x.device
            for y in xs) or x.dim() not in (3, 4):
@@ -351,7 +384,7 @@ def _rows(name: str, xs: tuple[torch.Tensor, ...], num_heads: int):
                                      for y in xs))
     b, n = x.shape[:2]
     c = x[0, 0].numel()
-    route = _check_heads(name, x.dtype, c, num_heads)
+    route = _check_heads(name, x.dtype, c, num_heads, n, backward)
     unit = _ALIGN[route] // x.element_size()
 
     def dense(y):
@@ -369,17 +402,20 @@ def _attention_forward(name: str, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Launches the forward kernel on three operands -> (B, N, C)."""
     (q, k, v), batch_stride, row_stride, b, n, c, route = _rows(
-        name, (q, k, v), num_heads)
+        name, (q, k, v), num_heads, False)
     d = c // num_heads
-    code = _DTYPE_CODES[q.dtype]
     lib = load_library()
     with torch.cuda.device(q.device):
         _check_smem(name, lib, route, False, q, d, "K and V")
         out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tic_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    batch_stride, row_stride, out.data_ptr(), b,
-                                    n, num_heads, d, code, d ** -0.5, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), batch_stride,
+                row_stride, out.data_ptr(), b, n, num_heads, d)
+        if route == "wgmma":
+            err = lib.tic_attention_fwd_sm90(*ptrs, d ** -0.5, stream)
+        else:
+            err = lib.tic_attention_fwd(*ptrs, _DTYPE_CODES[q.dtype],
+                                        d ** -0.5, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} "
                            f"(B={b}, N={n}, H={num_heads}, D={d}, {q.dtype})")
@@ -422,7 +458,7 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name} expects (B, N, C) operands, got "
                          f"{tuple(q.shape)}")
     (q, k, v), in_batch, in_row, b, n, c, route = _rows(name, (q, k, v),
-                                                        num_heads)
+                                                        num_heads, True)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError(f"{name}: g must be {tuple(q.shape)} {q.dtype} on "
                          f"{q.device}, got {tuple(g.shape)} {g.dtype} on "
@@ -466,7 +502,7 @@ def backward_probabilities(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} {q.dtype}")
     q, k, v, g = (x.contiguous() for x in (q, k, v, g))
     (q, k, v), in_batch, in_row, b, n, c, route = _rows(name, (q, k, v),
-                                                        num_heads)
+                                                        num_heads, True)
     d = c // num_heads
     lib = load_library()
     with torch.cuda.device(q.device):

@@ -41,6 +41,14 @@ Counterpart of six TPU studies of the JAX package's repository:
   variants on K1's own kernel and grid (``post_mul`` a template argument of
   ``csrc/slab_attention_fwd.cu``), beside :func:`softmax_variant_reference`.
 
+"K1" in these studies is K1's ``mma.sync`` kernel (``csrc/slab_attention_fwd.cu``):
+the model's bf16 forward at head dim 64 and N <= 256 has since moved to the
+Hopper ``wgmma`` route (``csrc/slab_attention_fwd_sm90.cu``), and the
+``mma.sync`` kernel stays the route of the other bf16 shapes. The studies
+dissect that kernel, so they are held to it: the ``full`` peel, every forward
+tile and S2's exp2 variant without ``post_mul`` equal it bit for bit (that
+variant is the kernel itself, the twin ``chip_smoke.py`` holds them to).
+
 Beside each wrapper is its plain PyTorch version (``*_reference``), the CPU
 path and the oracle of the tests and ``chip_smoke.py``. The wrappers take
 their plain version only for tensors on the CPU; a CUDA tensor launches the

@@ -11,16 +11,23 @@ root, so it builds and times that checkout's kernels through
 port). The processes run in turns, other, this, this, other, per round, so
 that drift of the card or its host falls on both sides alike. Each prints
 the median of 30 CUDA-event timings of K1 and K2 at ViT-L batch 64 (B 64, N
-197, C 1024, H 16) in bf16 and in f32 (the two device routes since the
-tensor-core redesign: ``mma`` and ``simt``), and of K5 at ViT-L batch 64
-(64 images of 224x224, P 16, D 1024) in bf16 and f32: around one call
+197, C 1024, H 16) in bf16 and in f32 (the device routes: bf16 ``mma`` or,
+for K1 since its Hopper redesign, ``wgmma``; f32 ``simt``), K1's bf16
+device time (``k1_device_ms``) and the route each side's bf16 K1 took
+(``k1_route``, read from the wrapper's ``route_launches``), and of K5 at
+ViT-L batch 64 (64 images of 224x224, P 16, D 1024) in bf16 and f32: around one call
 (``k5_ms``, as K1 and K2) and on the device alone (``k5_device_ms``: 20
 back-to-back calls behind a spin kernel, median of 10; the bf16 kernel
-takes less time on the device than its launch on the host). The script
+takes less time on the device than its launch on the host); and, end to
+end, one forward of a randomly initialised ViT-L (``'fused'``, bf16) at
+the serve bucket 64 under ``inference_mode``, median of 10 between CUDA
+events (``vit_l_b64_forward_ms``: 24 K1 launches among its ~470). The script
 prints one JSON line per process, the card and the medians of each side,
 and last whether the two builds compile each kernel to the same code: the
 names of the other checkout's kernels whose SASS (``cuobjdump -sass``,
-instructions only) no kernel of this checkout's library repeats exactly.
+instructions only) no kernel of this checkout's library repeats exactly
+(a kernel whose helpers moved to a shared header, as K5's did to
+``csrc/sm90.cuh``, is absent from it when its code is unchanged).
 """
 from __future__ import annotations
 
@@ -70,8 +77,23 @@ img, w, bias = (x.to(torch.bfloat16) for x in (img32, w32, b32))
 k5 = lambda: pe.patch_embed_forward(img, w, bias, 16)
 k5_32 = lambda: pe.patch_embed_forward(img32, w32, b32, 16)
 
+before = dict(attn.route_launches)
+attn.slab_attention_forward(qkv, 16)
+torch.cuda.synchronize()
+k1_route = [r for r in before if attn.route_launches[r] != before[r]]
+from touhouimageclassification_tpu_torch.models import create_model
+vit = create_model("vit-large", num_classes=120, device=dev).eval()
+images = torch.randn(64, 224, 224, 3, generator=gen, device=dev)
+with torch.inference_mode():
+    vit_ms = ms(lambda: vit(images), warmup=3, reps=10)
+del vit
+
 print(json.dumps({
+    "k1_route": k1_route,
+    "vit_l_b64_forward_ms": vit_ms,
     "k1_ms": ms(lambda: attn.slab_attention_forward(qkv, 16)),
+    "k1_device_ms": ms(lambda: attn.slab_attention_forward(qkv, 16), reps=10,
+                       calls=20),
     "k2_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16)),
     "k1_f32_ms": ms(lambda: attn.slab_attention_forward(qkv32, 16)),
     "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16)),
@@ -129,8 +151,10 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     print(json.dumps({side: {k: statistics.median(r[k] for r in rs)
-                             for k in rs[0] if k != "lib"}
+                             for k in rs[0] if k not in ("lib", "k1_route")}
                       for side, rs in runs.items()}))
+    print(json.dumps({"k1_route": {side: rs[0].get("k1_route")
+                                   for side, rs in runs.items()}}))
     here = set(sass(runs["this"][0]["lib"]).values())
     other = sass(runs["other"][0]["lib"])
     print(json.dumps({"other_kernels": len(other), "without_same_sass_here": [

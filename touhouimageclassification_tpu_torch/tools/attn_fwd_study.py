@@ -18,9 +18,11 @@ bucket 1), each of
 
 and holds each against the plain version (max |diff| and relative
 difference in norm). It also times the model's own launch
-(``slab_attention_forward``, which picks the rows a block from the launch
-shape) and prints its achieved rates against the card's published peaks
-(``tools.roofline_attn`` attributes its time to its parts). One JSON line
+(``slab_attention_forward``, on the route ``kernel_route`` names: the
+Hopper ``wgmma`` kernel at these shapes, two products; the variants' kernel
+issues three) and prints its achieved rates against the card's published
+peaks (``tools.roofline_attn`` attributes the mma.sync kernel's time to its
+parts). One JSON line
 per measurement; the card's name and power limit last. Medians of ``--reps``
 CUDA-event timings after 5 warm-up launches.
 """
@@ -81,10 +83,12 @@ def main(argv=None) -> int:
         ms = cuda_ms(torch, lambda: attn.slab_attention_forward(qkv, h),
                      args.reps)
         flops = 2 * 2 * b * h * n * n * d      # the bound's two products
-        issued = 3 * 2 * b * h * n * n * d     # S twice, PV once
+        route = attn.kernel_route(torch.bfloat16, d, n)
+        # mma.sync: S twice and PV once; wgmma: S once and PV once
+        issued = (3 if route == "mma" else 2) * 2 * b * h * n * n * d
         nbytes = 4 * b * n * c * 2             # q, k, v read, o written
         print(json.dumps({
-            "batch": b, "model_launch_ms": ms,
+            "batch": b, "model_launch_ms": ms, "model_route": route,
             "tflops_issued": issued / ms / 1e9,
             "share_of_bf16_peak": issued / ms / 1e-3 / PEAK_BF16,
             "tb_per_s": nbytes / ms / 1e9,

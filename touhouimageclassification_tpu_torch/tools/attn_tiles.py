@@ -20,14 +20,17 @@ TPU tool's own key (``block_b``, ``exp2`` and ``post_mul``, ``variant``,
   time;
 - the grid's blocks, the ring's stages and a block's shared memory;
 - max |diff| and relative difference in norm against the plain version, and
-  whether the output equals K1's (K2's) bit for bit;
+  whether the output equals K1's ``mma.sync`` forward (S2's exp2 variant
+  without post_mul: ``fwd_bit_equal_mma``) and K2 (``bwd_bit_equal_k2``)
+  bit for bit;
 - the bound (bytes: the slab, and g, read once, the output written once, at
   3.35 TB/s; the products come in under it) and the device time's share.
 
-Per batch one ``baseline`` record: K1 and K2 (the model's launches) one
-launch and device time; the tile kernels on K1's own tile
+Per batch one ``baseline`` record: K1 and K2 (the model's launches: K1 on
+its ``wgmma`` route) one launch and device time; the tile kernels on K1's
+``mma.sync`` tile
 (``SHIPPED_TILE``), device time, which is what the tile machinery costs
-against K1; and the plain versions' time. The library yardstick (PyTorch's
+against that kernel; and the plain versions' time. The library yardstick (PyTorch's
 fused attention, forward and backward) is timed by ``chip_smoke.py``, as
 for K1 and K2: the port's sources never call it. A tile that two keys or
 studies share (S1 ``block_b`` 1 = S3 ``loop`` = S4 ``splits`` 1, S1
@@ -76,8 +79,9 @@ def _diff(out, ref) -> dict:
 
 
 def baseline(b: int, reps: int) -> dict:
-    """K1, K2, the tiles on K1's grid and the plain versions at batch ``b``
-    (see the module docstring), with the outputs the tiles are held to."""
+    """K1, K2, the tiles on K1's mma.sync grid and the plain versions at
+    batch ``b`` (see the module docstring), with the outputs the tiles are
+    held to: the mma.sync forward and K2."""
     import torch
 
     from ..ops import attention as attn
@@ -86,11 +90,11 @@ def baseline(b: int, reps: int) -> dict:
     def make():
         qkv, g = _inputs(torch, b)
         shipped = study.SHIPPED_TILE
-        k1 = attn.slab_attention_forward(qkv, HEADS)
+        mma_fwd = study.softmax_variant_forward(qkv, HEADS, True, False)
         k2 = attn.slab_attention_backward(qkv, g, HEADS)
         bound = floors(b)
         return {
-            "outputs": (k1, k2),
+            "outputs": (mma_fwd, k2),
             "record": {
                 "batch": b, "baseline": {
                     "k1_ms": cuda_ms(torch, lambda: attn.slab_attention_forward(
@@ -142,7 +146,7 @@ def tile_forward(tile, b: int, reps: int) -> dict:
         torch.cuda.synchronize()
         rec = {f"fwd_{k}": v for k, v in _diff(
             out, study.slab_attention_reference(qkv, HEADS)).items()}
-        rec["fwd_bit_equal_k1"] = torch.equal(out, base["outputs"][0])
+        rec["fwd_bit_equal_mma"] = torch.equal(out, base["outputs"][0])
         rec.update(_timed(torch, run, reps, "fwd",
                           base["record"]["baseline"]["fwd_bound_ms"]))
         rec["fwd_plain_ms"] = base["record"]["baseline"]["plain_fwd_ms"]
@@ -196,7 +200,7 @@ def softmax_forward(variant: tuple, b: int, reps: int) -> dict:
         out = run()
         torch.cuda.synchronize()
         rec = {f"fwd_{k}": v for k, v in _diff(out, plain()).items()}
-        rec["fwd_bit_equal_k1"] = torch.equal(out, base["outputs"][0])
+        rec["fwd_bit_equal_mma"] = torch.equal(out, base["outputs"][0])
         rec.update(_timed(torch, run, reps, "fwd",
                           base["record"]["baseline"]["fwd_bound_ms"]))
         rec["fwd_plain_ms"] = cuda_ms(torch, plain, reps)
