@@ -26,17 +26,25 @@ fatal on failure:
    around one launch and as device time, with the bound and the host time
    of one launch;
 4. the same for the backward kernel (K2) at the train path's shapes (the
-   library call is SDPA's autograd backward), and check that autograd
-   through the fused attention runs K1 then K2; measure how far the
-   probabilities of K2's two passes differ;
+   library call is SDPA's autograd backward), two launches bit-equal, and
+   check that autograd through the fused attention runs K1 then K2; measure
+   how far the probabilities of the ``mma.sync`` kernel's two passes differ;
+   then K2's ``wgmma`` route against its ``mma.sync`` kernel (the ``full``
+   peel), SDPA's backward and the plain version at ViT-L B 64 and 8 and
+   ViT-B B 64, 4 and 2, around one launch and as device time, with the bound,
+   the host time of one launch and the ``wgmma`` kernel's forms forced one
+   by one (``k2_routes``);
 5. the same for the three-operand attention (K3, forward and backward) and
    the (B, N, H, D) attention forward (K4, on the q, k, v views of a QKV
-   slab, as the model hands them); the patch embedding (K5) at ViT-L's
+   slab, as the model hands them), K3's backward also beside its
+   ``mma.sync`` kernel and bit-equal to K2 on the same values; the patch
+   embedding (K5) at ViT-L's
    shapes and in a bf16 sweep (B 1, 3, 63; 224x224 at P 16 and 8, 224x160;
    D 64 to 1024), bf16 launches on the tensor-core route (``wgmma``) and
    f32 on ``simt``, timed against ``F.conv2d`` and the model's ``'xla'``
    patch embedding; then ``packed_attention`` (K3's op) once under
-   autograd;
+   autograd, and K1, K2 and K5 each launched from a fresh thread (as
+   autograd's worker launches K2), bit-equal to the main thread's launch;
 6. run ``infer.serve.main`` on a 120-class fixture ImageFolder: ``--full``
    without and with the canvas cache (which resizes on the device), then one
    single image; check the CSVs and that every forward launched K1 once per
@@ -62,8 +70,8 @@ fatal on failure:
 11. the training loop end to end: ``train.ntrain.main`` (the ``nvit``
     preset, one epoch through ``HostImageLoader``, from a synthetic local
     HF snapshot of the random weights) with K1 and K2 launched once per
-    layer per step, K1 on the ``wgmma`` route and K2 on ``mma`` (every bf16
-    model path below counts them so), its checkpoint restored, ``--test``,
+    layer per step, both on the ``wgmma`` route (every bf16 model path
+    below counts them so), its checkpoint restored, ``--test``,
     ``--transform`` to a serving export and the serve CLI on that export,
     whose judge CSV must equal the one of a ``Predictor`` on the restored
     model; a profiled ``Trainer.fit``; then exact resume from the seeded
@@ -91,8 +99,8 @@ fatal on failure:
     B 64 and 128, their launches counted; then every level and variant held
     to its plain version (``dma``, ``layout`` and the copies bit for bit,
     ``matmul`` and ``full`` within the bf16 bounds) and the ``full`` peels
-    bit for bit to the ``mma.sync`` forward they peel (K1's kernel before the
-    ``wgmma`` route) and to K2;
+    bit for bit to the ``mma.sync`` kernels they peel (K1's and K2's kernels
+    before the ``wgmma`` routes);
 14. the kernel studies S1-S4, the study path: ``tools.bench_attn4`` (S1,
     whole images a block), ``tools.bench_attn6`` (S2, exp / exp2 and the
     divide of P / 1 / l after PV, on K1's kernel), ``tools.bench_attn7``
@@ -100,8 +108,8 @@ fatal on failure:
     H / S heads a block, forward and backward) at ViT-L's width and B 64 and
     128, their launches counted by tile and variant; then every tile held
     to its plain version within the bf16 bounds and bit for bit to the
-    ``mma.sync`` forward (S2's exp2 variant without post_mul) and to K2
-    (backward), at B 64 and 128 and on ragged shapes (B 1, 2, 3; N 16, 67,
+    ``mma.sync`` forward (S2's exp2 variant without post_mul) and to the
+    ``mma.sync`` backward (the ``full`` peel), at B 64 and 128 and on ragged shapes (B 1, 2, 3; N 16, 67,
     197, 257), the S2 variants to their plain versions, a tile past shared
     memory (N 577)
     raising, and ``tile_smem_bytes`` equal to the C sums;
@@ -254,15 +262,18 @@ PEAK_BYTES = 3.35e12
 SWEEP_N = (1, 16, 67, 197, 256, 257, 577)
 SWEEP_D = (32, 64, 128)
 # The attention kernels' routes by dtype at the models' shapes (D 64, N 197):
-# the forward (K1, K3's forward, K4) on the Hopper wgmma kernel in bf16, the
-# backward (K2, K3's backward) on mma.sync; f32 on SIMT either way.
+# the forward (K1, K3's forward, K4) and the backward (K2, K3's backward) on
+# the Hopper wgmma kernels in bf16; f32 on SIMT either way.
 ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
-BWD_ROUTES = {"bfloat16": "mma", "float32": "simt"}
+BWD_ROUTES = {"bfloat16": "wgmma", "float32": "simt"}
 # K1's routes compared at the mixtures' and ViT-L's widths (phase 3): (name,
-# B, C, H) at N 197.
+# B, C, H) at N 197; K2's (phase 4) at the train step's batches.
 K1_ROUTE_SHAPES = (("vit-l", 64, 1024, 16), ("vit-l", 1, 1024, 16),
                    ("vit-b", 2, 768, 12), ("vit-b", 4, 768, 12),
                    ("vit-b", 64, 768, 12))
+K2_ROUTE_SHAPES = (("vit-l", 64, 1024, 16), ("vit-l", 8, 1024, 16),
+                   ("vit-b", 64, 768, 12), ("vit-b", 4, 768, 12),
+                   ("vit-b", 2, 768, 12))
 # The patch embedding's bf16 sweep: batches around the serve buckets and a
 # ragged last 128-row tile (M 196, 588, 12,348), ViT's 224x224 at P 16 and 8
 # and a non-square image (H, W, P), and output widths from one tile to
@@ -435,9 +446,9 @@ def zero_routes(attn) -> None:
 
 def model_routes(forwards: int, backwards: int) -> dict:
     """The attention launches by route that a bf16 model path at D 64 and
-    N 197 must show: its forwards (K1, K4) on wgmma, its backwards (K2) on
-    mma, none on simt."""
-    return {"wgmma": forwards, "mma": backwards, "simt": 0}
+    N 197 must show: its forwards (K1, K4) and its backwards (K2) on wgmma,
+    none on mma or simt."""
+    return {"wgmma": forwards + backwards, "mma": 0, "simt": 0}
 
 
 def check_close(torch, what: str, out, ref, dtype, verbose: bool = True):
@@ -486,7 +497,8 @@ def sweep(torch, attn, what: str, backward: bool, make) -> None:
     c_bytes = {"mma": lambda n, d: (
         lib.tic_slab_attention_bwd_smem_bytes if backward
         else lib.tic_slab_attention_fwd_smem_bytes)(n, d, 1),
-        "wgmma": lib.tic_slab_attention_fwd_sm90_smem_bytes}
+        "wgmma": (lib.tic_slab_attention_bwd_sm90_smem_bytes if backward
+                  else lib.tic_slab_attention_fwd_sm90_smem_bytes)}
     worst, raised = (0.0, 0.0), []
     by_route = {}
     for d in SWEEP_D:
@@ -538,14 +550,72 @@ def sdpa(torch, q, k, v):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
 
-def sdpa_backward_ms(torch, leaves, views, g) -> float:
-    """Milliseconds of SDPA's autograd backward alone: the forward is taken
-    once, the gradient of ``leaves`` timed with the graph retained."""
+def sdpa_backward(torch, leaves, views, g):
+    """SDPA's autograd backward alone, as a call: the forward is taken once,
+    each call takes the gradient of ``leaves`` with the graph retained."""
     with torch.enable_grad():
         out = sdpa(torch, *views)
     g = g.reshape(out.transpose(1, 2).shape).transpose(1, 2)
-    return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                               retain_graph=True))
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def sdpa_backward_ms(torch, leaves, views, g) -> float:
+    """Milliseconds of SDPA's autograd backward alone (one call between
+    events)."""
+    return cuda_ms(sdpa_backward(torch, leaves, views, g))
+
+
+def mma_backward(torch, attn, qkv, g, h):
+    """K2's mma.sync kernel on a bf16 slab whatever route ``kernel_route``
+    names for its shape: the entry point of that route,
+    ``tic_slab_attention_bwd``, called directly. Counts no launch."""
+    lib = attn.load_library()
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // h
+    out = torch.empty_like(qkv)
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=qkv.device)
+    err = lib.tic_slab_attention_bwd(
+        qkv.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(), b, n,
+        h, d, 1, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tic_slab_attention_bwd failed with CUDA error {err}")
+    return out
+
+
+def mma_packed_backward(torch, attn, q, k, v, g, h):
+    """K3's backward on its mma.sync kernel (``tic_attention_bwd``, called
+    directly) for three contiguous bf16 (B, N, C) operands. Counts no
+    launch."""
+    lib = attn.load_library()
+    b, n, c = q.shape
+    d = c // h
+    grads = [torch.empty_like(q) for _ in range(3)]
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    err = lib.tic_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), n * c, c, g.data_ptr(),
+        *(x.data_ptr() for x in grads), n * c, c, stats.data_ptr(), b, n, h, d,
+        1, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tic_attention_bwd failed with CUDA error {err}")
+    return grads
+
+
+def k2_form(torch, attn, qkv, g, h, split: int):
+    """K2's wgmma kernel with its form forced, through the measurement entry
+    point ``tic_slab_attention_bwd_sm90_form``: split 0, one launch of whole
+    heads; 1, two launches of two-block items; 2, of one-block items (the
+    wrapper's rule picks one by the shape). Counts no launch."""
+    lib = attn.load_library()
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // h
+    out = torch.empty_like(qkv)
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=qkv.device)
+    err = lib.tic_slab_attention_bwd_sm90_form(
+        qkv.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(), b, n,
+        h, d, d ** -0.5, split, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K2 form {split} failed with CUDA error {err}")
+    return out
 
 
 def host_ms(torch, fn, calls: int = 100) -> float:
@@ -654,8 +724,69 @@ def phase_kernels(torch, attn, study):
                 host_ms=at64["wgmma_host_ms"], routes=routes)
 
 
-def phase_backward(torch, attn):
-    """K2 vs plain at the train path's shapes; times at ViT-L batch 64."""
+def k2_routes(torch, attn, study, gen, dev) -> list[dict]:
+    """K2 on its ``wgmma`` route against its ``mma.sync`` kernel (the ``full``
+    peel of S5, K2's kernel before the wgmma route), SDPA's autograd backward
+    and the plain version at K2_ROUTE_SHAPES: one launch between events
+    (``ms``), device time (``device_ms``), the host's time to enqueue one
+    launch and the bytes bound; the wgmma kernel's forms forced one by one
+    (``fused``: one launch of whole heads; ``split2``, ``split1``: two
+    launches of two- and one-block items), each bit-equal to the wrapper's
+    launch. Every launch of the wgmma side counted on its route; two
+    launches bit-equal; wgmma within TOL and REL_TOL of the plain version
+    and of mma.sync."""
+    rows = []
+    for name, b, c, h in K2_ROUTE_SHAPES:
+        qkv = torch.randn(b, 197, 3 * c, generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn(b, 197, c, generator=gen, device=dev).to(torch.bfloat16)
+        leaf = qkv.detach().requires_grad_()
+        sides = {"wgmma": lambda: attn.slab_attention_backward(qkv, g, h),
+                 "mma": lambda: study.slab_attention_peel_backward(qkv, g, h,
+                                                                   "full"),
+                 "sdpa": sdpa_backward(torch, (leaf,), leaf.view(
+                     b, 197, 3, h, c // h).unbind(2), g),
+                 "plain": lambda: attn.slab_attention_backward_reference(
+                     qkv, g, h)}
+        forms = {f: (lambda split=split: k2_form(torch, attn, qkv, g, h, split))
+                 for f, split in (("fused", 0), ("split2", 1), ("split1", 2))}
+        ref = sides["plain"]()
+        out = on_route(attn, torch.bfloat16, 1, sides["wgmma"], BWD_ROUTES)
+        mma = sides["mma"]()
+        torch.cuda.synchronize()
+        row = {"shape": name, "batch": b}
+        for side, got in (("wgmma", out), ("mma", mma)):
+            row[f"{side}_max_abs_err"], row[f"{side}_rel_norm"] = check_close(
+                torch, f"K2 {side}, {name} B {b}", got, ref, torch.bfloat16,
+                verbose=False)
+        row["wgmma_vs_mma_max_abs"], row["wgmma_vs_mma_rel_norm"] = (
+            check_close(torch, f"K2 wgmma vs mma.sync, {name} B {b}", out, mma,
+                        torch.bfloat16, verbose=False))
+        if not torch.equal(out, sides["wgmma"]()):
+            raise AssertionError(f"K2 wgmma, {name} B {b}: two launches differ")
+        for f, fn in forms.items():
+            if not torch.equal(out, fn()):
+                raise AssertionError(f"K2 wgmma form {f}, {name} B {b}: not "
+                                     "bit-equal to the wrapper's launch")
+        for side, fn in sides.items():
+            row[f"{side}_ms"] = cuda_ms(fn)
+            row[f"{side}_device_ms"] = device_ms(fn)
+        for f, fn in forms.items():
+            row[f"wgmma_{f}_device_ms"] = device_ms(fn)
+        for side in ("wgmma", "mma"):
+            row[f"{side}_host_ms"] = host_ms(torch, sides[side])
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            b, 197, c, h, torch.bfloat16, backward=True)
+        row["wgmma_share_of_bound"] = row["bound_ms"] / row["wgmma_device_ms"]
+        print(f"K2 routes, {name} B {b} (N 197, C {c}, H {h}; "
+              f"{card_line()}): {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_backward(torch, attn, study):
+    """K2 vs plain at the train path's shapes, two launches bit-equal; K2's
+    two bf16 routes side by side (:func:`k2_routes`)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     cases = [  # (name, B, N, C, H, dtype)
@@ -679,6 +810,8 @@ def phase_backward(torch, attn):
         errs[(name, dtype)] = check_close(
             torch, f"K2 vs plain backward, {name}", out,
             attn.slab_attention_backward_reference(qkv, g, h), dtype)
+        if not torch.equal(out, attn.slab_attention_backward(qkv, g, h)):
+            raise AssertionError(f"K2, {name} {dtype}: two launches differ")
 
     # autograd through the 'fused' attention: one K1 and one K2 launch, and
     # the gradient is K2's, bit for bit (K2 has no atomics)
@@ -705,8 +838,9 @@ def phase_backward(torch, attn):
 
     sweep(torch, attn, "K2", True, slab)
 
-    # The two passes form S as Q K^T (pass 1) and K Q^T (pass 2) on the
-    # tensor cores: how far apart are the probabilities they form?
+    # The mma.sync kernel's two passes form S as Q K^T (pass 1) and K Q^T
+    # (pass 2) on the tensor cores, as the wgmma kernel's two phases do: how
+    # far apart are the probabilities they form?
     for b, n, c, h in [(8, 197, 1024, 16), (2, 67, 64, 2), (2, 257, 256, 2)]:
         q, k, v, g = (torch.randn(b, n, c, generator=gen, device=dev).to(
             torch.bfloat16) for _ in range(4))
@@ -714,28 +848,26 @@ def phase_backward(torch, attn):
         if not (torch.isfinite(p1).all() and torch.isfinite(p2).all()):
             raise AssertionError("a pass left a probability unwritten")
         diff = (p1 - p2).abs()
-        print(f"K2 pass 1 vs pass 2 probabilities, B {b} N {n} H {h} D "
+        print(f"K2 (mma.sync) pass 1 vs pass 2 probabilities, B {b} N {n} H {h} D "
               f"{c // h}: {int((p1 != p2).sum())} of {p1.numel()} differ, max "
               f"|diff| {diff.max().item():.3e}")
 
-    qkv = torch.randn(64, 197, 3 * 1024, generator=gen,
-                      device=dev).to(torch.bfloat16)
-    g = torch.randn(64, 197, 1024, generator=gen, device=dev).to(torch.bfloat16)
-    ms = cuda_ms(lambda: attn.slab_attention_backward(qkv, g, 16))
-    plain_ms = cuda_ms(
-        lambda: attn.slab_attention_backward_reference(qkv, g, 16))
-    leaf = qkv.detach().requires_grad_()
-    library_ms = sdpa_backward_ms(torch, (leaf,),
-                                  leaf.view(64, 197, 3, 16, 64).unbind(2), g)
-    bound_ms, bound_by = attention_bound(64, 197, 1024, 16, torch.bfloat16,
-                                         backward=True)
+    routes = k2_routes(torch, attn, study, gen, dev)
+    at64 = routes[0]
     print(f"slab attention backward, ViT-L batch 64 bf16 (B 64, N 197, C 1024, "
-          f"H 16): K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA's autograd "
-          f"backward {library_ms:.4f} ms (median of 30); bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=errs[("vit-l batch 64", torch.bfloat16)], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+          f"H 16): K2 (wgmma) {at64['wgmma_ms']:.4f} ms, device "
+          f"{at64['wgmma_device_ms']:.4f}; mma.sync {at64['mma_device_ms']:.4f}; "
+          f"plain {at64['plain_ms']:.4f} ms; SDPA's autograd backward "
+          f"{at64['sdpa_ms']:.4f} ms, device {at64['sdpa_device_ms']:.4f} "
+          f"(median of 30 / 10); bound {at64['bound_ms']:.4f} ms "
+          f"({at64['bound_by']})")
+    return dict(max_abs_err=errs[("vit-l batch 64", torch.bfloat16)],
+                ms=at64["wgmma_ms"], device_ms=at64["wgmma_device_ms"],
+                plain_ms=at64["plain_ms"], bound_ms=at64["bound_ms"],
+                bound_by=at64["bound_by"], library_ms=at64["sdpa_ms"],
+                library_device_ms=at64["sdpa_device_ms"],
+                mma_ms=at64["mma_ms"], mma_device_ms=at64["mma_device_ms"],
+                host_ms=at64["wgmma_host_ms"], routes=routes)
 
 
 def phase_three_operand_kernels(torch, attn):
@@ -788,20 +920,34 @@ def phase_three_operand_kernels(torch, attn):
                     lambda: attn.packed_attention_reference(q, k, v, h)),
                 library_ms=cuda_ms(lambda: sdpa(torch, *heads)),
                 library_device_ms=device_ms(lambda: sdpa(torch, *heads)))
-            out["K3 bwd"] = dict(
-                max_abs_err=bwd_err,
-                ms=cuda_ms(
-                    lambda: attn.packed_attention_backward(q, k, v, g, h)),
-                device_ms=device_ms(
-                    lambda: attn.packed_attention_backward(q, k, v, g, h)),
-                plain_ms=cuda_ms(lambda: attn.packed_attention_backward_reference(
-                    q, k, v, g, h)),
-                library_ms=sdpa_backward_ms(
-                    torch, leaves,
-                    [x.view(b, n, h, c // h) for x in leaves], g))
+            # K3's backward is K2's device code: the same bits on the slab
+            # of the same values; beside its mma.sync kernel, as K2's rows
+            slab_grads = attn.slab_attention_backward(
+                torch.cat([q, k, v], -1), g, h)
+            if not torch.equal(torch.cat(grads, -1), slab_grads):
+                raise AssertionError("K3 backward differs from K2 on the same "
+                                     "values")
+            mma = torch.cat(mma_packed_backward(torch, attn, q, k, v, g, h), -1)
+            check_close(torch, "K3 backward wgmma vs mma.sync", torch.cat(
+                grads, -1), mma, dtype)
+            sides = {
+                "": lambda: attn.packed_attention_backward(q, k, v, g, h),
+                "mma_": lambda: mma_packed_backward(torch, attn, q, k, v, g, h),
+                "library_": sdpa_backward(
+                    torch, leaves, [x.view(b, n, h, c // h) for x in leaves], g)}
+            rec = {"max_abs_err": bwd_err, "plain_ms": cuda_ms(
+                lambda: attn.packed_attention_backward_reference(q, k, v, g, h))}
+            for side, fn in sides.items():
+                rec[f"{side}ms"] = cuda_ms(fn)
+                rec[f"{side}device_ms"] = device_ms(fn)
+            rec["host_ms"] = host_ms(torch, sides[""])
+            rec["mma_host_ms"] = host_ms(torch, sides["mma_"])
+            out["K3 bwd"] = rec
             for key, backward in (("K3 fwd", False), ("K3 bwd", True)):
                 out[key]["bound_ms"], out[key]["bound_by"] = attention_bound(
                     b, n, c, h, dtype, backward)
+            out["K3 bwd"]["share_of_bound"] = (out["K3 bwd"]["bound_ms"]
+                                               / out["K3 bwd"]["device_ms"])
 
     # K4 on what the model hands it: the q, k, v views of the (B, N, 3C) QKV
     # projection (row stride 3C), at the train batch and the serve bucket 1;
@@ -856,11 +1002,13 @@ def phase_three_operand_kernels(torch, attn):
     sweep(torch, attn, "K4 on views of the QKV slab", False, slab_views)
 
     for key, r in out.items():
-        print(f"{key}, ViT-L batch 64 bf16: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
-              f"call {r['library_ms']:.4f} ms (device "
-              f"{r.get('library_device_ms', float('nan')):.4f}; median of 30 / "
-              f"10); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"{key}, ViT-L batch 64 bf16 ({card_line()}): kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library call {r['library_ms']:.4f} ms "
+              f"(device {r.get('library_device_ms', float('nan')):.4f}; median "
+              f"of 30 / 10); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"K3 bwd, ViT-L batch 64 bf16 ({card_line()}): "
+          f"{json.dumps(out['K3 bwd'])}")
     return out
 
 
@@ -985,6 +1133,44 @@ def phase_packed_op(torch, attn) -> tuple[int, int]:
     print("packed_attention under autograd, ViT-L batch 64 bf16: one K3 "
           "forward + one K3 backward launch, gradients identical to K3's")
     return launches
+
+
+def phase_fresh_thread(torch, attn, pe) -> None:
+    """Every kernel that encodes a tensor map on the host (K1 and K2 on
+    wgmma, K5) launched from a thread whose first CUDA call it is, as
+    autograd's worker thread runs K2 when the attention backward is its
+    first operation: the outputs equal the main thread's bit for bit."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    qkv = torch.randn(2, 197, 3 * 768, generator=gen, device=dev).to(bf16)
+    g = torch.randn(2, 197, 768, generator=gen, device=dev).to(bf16)
+    img = torch.randn(2, 224, 224, 3, generator=gen, device=dev).to(bf16)
+    w = (0.02 * torch.randn(768, 768, generator=gen, device=dev)).to(bf16)
+    bias = (0.02 * torch.randn(768, generator=gen, device=dev)).to(bf16)
+    runs = {"K1": lambda: attn.slab_attention_forward(qkv, 12),
+            "K2": lambda: attn.slab_attention_backward(qkv, g, 12),
+            "K5": lambda: pe.patch_embed_forward(img, w, bias, 16)}
+    for name, run in runs.items():
+        got, errors = {}, []
+
+        def target(run=run):
+            try:
+                got["out"] = run()
+                torch.cuda.synchronize()
+            except Exception as e:  # carried to the main thread
+                errors.append(e)
+
+        thread = threading.Thread(target=target)
+        thread.start()
+        thread.join()
+        if errors:
+            raise AssertionError(f"{name} from a fresh thread: {errors[0]}")
+        if not torch.equal(got["out"], run()):
+            raise AssertionError(f"{name} from a fresh thread differs from the "
+                                 "main thread's launch")
+    print(f"K1, K2 and K5 launched from fresh threads: bit-equal to the main "
+          f"thread's ({card_line()})")
 
 
 def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
@@ -1184,7 +1370,7 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
         raise AssertionError(f"train: K1/K2 launches by route "
                              f"{attn.route_launches}, expected K1 "
                              f"{launches[0]} on wgmma, K2 {launches[1]} on "
-                             "mma")
+                             "wgmma")
     batches.close()
     out = trainer.evaluate(val)
     if not (np.isfinite(out["val_loss"]) and 0 <= out["val_acc"] <= 1):
@@ -1945,8 +2131,9 @@ def phase_studies(torch, attn, study):
                                  "mma.sync forward")
         if not torch.equal(
                 study.slab_attention_peel_backward(qkv, g, h, "full"),
-                attn.slab_attention_backward(qkv, g, h)):
-            raise AssertionError(f"bwd full, B {b}: differs from K2")
+                mma_backward(torch, attn, qkv, g, h)):
+            raise AssertionError(f"bwd full, B {b}: differs from the mma.sync "
+                                 "backward")
         if b == 64:
             views = qkv.view(b, n, 3, h, c // h).unbind(2)
             sdpa_ms = cuda_ms(lambda: sdpa(torch, *views))
@@ -1956,7 +2143,7 @@ def phase_studies(torch, attn, study):
     print(f"S5 and S6 vs plain at B {STUDY_BATCHES}: dma, layout and the "
           f"copies bit-equal; matmul and full within {TOL['bfloat16']} and "
           f"{REL_TOL['bfloat16']} in norm; full bit-equal to the mma.sync "
-          f"forward and K2; max |diff| at B 64 {errs}")
+          f"forward and backward; max |diff| at B 64 {errs}")
 
     at64 = {r["batch"]: r for r in peels}[64]
     copies64 = {r["batch"]: r for r in copies}[64]["variants"]
@@ -2031,9 +2218,9 @@ def phase_tile_studies(torch, attn, study):
             mma_twin = name != "S2" or (rec.get("exp2") and not rec["post_mul"])
             if "baseline" not in rec and (
                     (mma_twin and not rec["fwd_bit_equal_mma"])
-                    or rec.get("bwd_bit_equal_k2") is False):
+                    or rec.get("bwd_bit_equal_mma") is False):
                 raise AssertionError(f"{name} {rec}: not bit-equal to the "
-                                     "mma.sync forward / K2")
+                                     "mma.sync forward / backward")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -2045,7 +2232,7 @@ def phase_tile_studies(torch, attn, study):
         qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).to(bf16)
         g = torch.randn(b, n, c, generator=gen, device=dev).to(bf16)
         mma_fwd = study.softmax_variant_forward(qkv, h, True, False)
-        k2 = attn.slab_attention_backward(qkv, g, h)
+        mma_bwd = study.slab_attention_peel_backward(qkv, g, h, "full")
         plain_fwd = attn.slab_attention_reference(qkv, h)
         plain_bwd = attn.slab_attention_backward_reference(qkv, g, h)
         for tile in fwd_tiles:
@@ -2059,8 +2246,9 @@ def phase_tile_studies(torch, attn, study):
         for tile in bwd_tiles:
             out = study.slab_attention_tile_backward(qkv, g, h, tile)
             torch.cuda.synchronize()
-            if not torch.equal(out, k2):
-                raise AssertionError(f"bwd {tile}, B {b} N {n}: differs from K2")
+            if not torch.equal(out, mma_bwd):
+                raise AssertionError(f"bwd {tile}, B {b} N {n}: differs from "
+                                     "the mma.sync backward")
             check_close(torch, f"bwd {tile}", out, plain_bwd, bf16,
                         verbose=False)
         for key in study.SOFTMAX_VARIANTS:
@@ -2099,7 +2287,7 @@ def phase_tile_studies(torch, attn, study):
         else:
             raise AssertionError(f"a tile at N {TILE_TOO_LONG} did not raise")
     print(f"S1-S4 at (B, N) {shapes}: every tile bit-equal to the mma.sync "
-          f"forward (S2's exp2 without post_mul) and K2 (backward) and within "
+          f"forward (S2's exp2 without post_mul) and backward and within "
           f"{TOL['bfloat16']} and {REL_TOL['bfloat16']} in norm of the plain "
           "versions; the S2 variants within the same bounds of theirs; N "
           f"{TILE_TOO_LONG} raises; tile_smem_bytes equals the C sums")
@@ -2173,7 +2361,7 @@ def zero_counts(attn) -> None:
 
 def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
     """K1's and K2's launches since :func:`zero_counts`: they must be
-    ``expect``, every forward on the wgmma route and every backward on mma
+    ``expect``, every forward and every backward on the wgmma route
     (bf16)."""
     made = (attn.launches, attn.bwd_launches)
     print(f"{what}: K1/K2 launches {made} (expected {expect}), by route "
@@ -2181,7 +2369,7 @@ def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
     if made != expect or attn.route_launches != model_routes(*made):
         raise AssertionError(f"{what}: K1/K2 launches {made}, routes "
                              f"{attn.route_launches}, expected {expect} "
-                             "(forwards on wgmma, backwards on mma)")
+                             "(forwards and backwards on wgmma)")
     return made
 
 
@@ -2603,7 +2791,10 @@ def phase_vit_b_kernels(torch, attn) -> list[dict]:
     """Phase 15, K1 and K2 alone at ViT-B's width (N 197, C 768, 12 heads,
     bf16) and the mixtures' batches: against their plain versions, timed
     around one launch (``ms``) and as device time (``device_ms``), beside
-    SDPA and its autograd backward and the bytes bound."""
+    SDPA and its autograd backward (K2 also beside its mma.sync kernel) and
+    the bytes bound."""
+    from touhouimageclassification_tpu_torch.ops import attention_study as study
+
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     n, c, h = 197, 768, 12
@@ -2642,11 +2833,16 @@ def phase_vit_b_kernels(torch, attn) -> list[dict]:
                 plain_ms=cuda_ms(
                     lambda: attn.slab_attention_backward_reference(qkv, g,
                                                                    h)))
-        bwd["library_ms"] = sdpa_backward_ms(
-            torch, (leaf,), leaf.view(b, n, 3, h, c // h).unbind(2), g)
+        library = sdpa_backward(torch, (leaf,), leaf.view(
+            b, n, 3, h, c // h).unbind(2), g)
+        bwd["library_ms"] = cuda_ms(library)
+        bwd["library_device_ms"] = device_ms(library)
+        bwd["mma_device_ms"] = device_ms(
+            lambda: study.slab_attention_peel_backward(qkv, g, h, "full"))
         for rec, backward in ((fwd, False), (bwd, True)):
             rec["bound_ms"], rec["bound_by"] = attention_bound(
                 b, n, c, h, torch.bfloat16, backward)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
         print(f"ViT-B bf16 B {b} (N 197, C 768, H 12; {card_line()}): K1 "
               f"{json.dumps(fwd)}; K2 {json.dumps(bwd)}")
         rows.append((fwd, bwd))
@@ -4072,9 +4268,15 @@ def profile(torch, fn, label: str):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # the attention kernels' share: K1 (attention_fwd_*), K2 (attention_bwd_*)
+    attention = {way: sum(e.self_device_time_total for e in events
+                          if f"attention_{way}_" in e.key) / 1e3
+                 for way in ("fwd", "bwd")}
     print(f"profile, one {label}: wall {wall_ms:.3f} ms (profiler on), "
           f"device kernels {device_ms:.3f} ms, busy share "
-          f"{device_ms / wall_ms:.3f}")
+          f"{device_ms / wall_ms:.3f}; attention kernels forward "
+          f"{attention['fwd']:.3f} ms, backward {attention['bwd']:.3f} ms "
+          f"({card_line()})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
@@ -4115,10 +4317,11 @@ def main() -> int:
             print("ptxas:", line.strip())
 
     stats = {"K1": phase_kernels(torch, attn, study),
-             "K2": phase_backward(torch, attn),
+             "K2": phase_backward(torch, attn, study),
              **phase_three_operand_kernels(torch, attn),
              "K5": phase_patch_embed(torch, pe)}
     packed_launches = phase_packed_op(torch, attn)
+    phase_fresh_thread(torch, attn, pe)
 
     layers = 24
     build_dir = os.path.join(ROOT, "build")
@@ -4184,7 +4387,7 @@ def main() -> int:
                                  multi_launches.items()},
                               **{path: k1 for path, (k1, _) in
                                  option_launches.items()}}, "fit"),
-        ("K2", "slab_attention_bwd", "slab_attention_bwd.cu",
+        ("K2", "slab_attention_bwd", "slab_attention_bwd_sm90.cu",
          "attention.py:482", {"train": train_launches[1],
                               "fit": fit_launches[1],
                               **{path: k2 for path, (_, k2) in
@@ -4196,7 +4399,7 @@ def main() -> int:
         ("K3 fwd", "packed_attention_fwd", "slab_attention_fwd_sm90.cu",
          "attention.py:253", {"packed_attention": packed_launches[0]},
          "packed_attention"),
-        ("K3 bwd", "packed_attention_bwd", "slab_attention_bwd.cu",
+        ("K3 bwd", "packed_attention_bwd", "slab_attention_bwd_sm90.cu",
          "attention.py:309", {"packed_attention": packed_launches[1]},
          "packed_attention"),
         ("K4", "flash_attention_fwd", "slab_attention_fwd_sm90.cu",

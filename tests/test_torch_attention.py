@@ -340,33 +340,36 @@ SWEEP = [(n, d) for d in (32, 64, 128)
     (torch.bfloat16, 32, False, "mma"), (torch.bfloat16, 64, False, "wgmma"),
     (torch.bfloat16, 128, False, "mma"), (torch.float32, 32, False, "simt"),
     (torch.float32, 64, False, "simt"), (torch.float32, 128, False, "simt"),
-    (torch.bfloat16, 32, True, "mma"), (torch.bfloat16, 64, True, "mma"),
+    (torch.bfloat16, 32, True, "mma"), (torch.bfloat16, 64, True, "wgmma"),
     (torch.bfloat16, 128, True, "mma"), (torch.float32, 64, True, "simt"),
 ])
 def test_kernel_route_by_dtype(dtype, d, backward, route):
-    """At the models' N 197: the bf16 forward at head dim 64 takes the Hopper
-    wgmma route; every other bf16 launch (head dims 32 and 128, every
-    backward) the mma.sync route; f32 the SIMT route, at every head dim the
+    """At the models' N 197: bf16 at head dim 64 takes the Hopper wgmma
+    route in both directions; every other bf16 launch (head dims 32 and
+    128) the mma.sync route; f32 the SIMT route, at every head dim the
     kernels take."""
     assert port.kernel_route(dtype, d, 197, backward) == route
 
 
 def test_wgmma_route_takes_every_n_up_to_256():
-    """The bf16 forward at head dim 64 runs on wgmma for every N from one
-    token to 256 (its scores stay in registers); N 257 and past go to mma,
-    as does the backward at every N."""
+    """bf16 at head dim 64 runs on wgmma for every N from one token to 256
+    (the scores of a 64-row block stay in registers), forward and backward;
+    N 257 and past go to mma in both directions."""
     for n in range(1, 257):
         assert port.kernel_route(torch.bfloat16, 64, n) == "wgmma", n
-        assert port.kernel_route(torch.bfloat16, 64, n, backward=True) == "mma"
+        assert port.kernel_route(torch.bfloat16, 64, n,
+                                 backward=True) == "wgmma", n
     for n in (257, 577, 1025):
         assert port.kernel_route(torch.bfloat16, 64, n) == "mma", n
+        assert port.kernel_route(torch.bfloat16, 64, n, backward=True) == "mma"
     assert port.WGMMA_MAX_N == 256
 
 
+@pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("d", [32, 128])
 @pytest.mark.parametrize("n", [1, 197, 256, 257])
-def test_other_head_dims_stay_on_mma(n, d):
-    assert port.kernel_route(torch.bfloat16, d, n) == "mma"
+def test_other_head_dims_stay_on_mma(n, d, backward):
+    assert port.kernel_route(torch.bfloat16, d, n, backward) == "mma"
 
 
 @pytest.mark.parametrize("dtype,d,error", [
@@ -415,6 +418,31 @@ def test_wgmma_route_fits_shared_memory(n):
     assert need <= H100_SMEM_OPTIN
 
 
+def _c_smem_sum(source: str) -> int:
+    """The shared-memory sum a kernel source states in its static_assert."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(port.__file__).parents[1] / "csrc" / source).read_text()
+    return int(re.search(r"static_assert\(kSmemBytes == (\d+),", text).group(1))
+
+
+@pytest.mark.parametrize("n", [1, 64, 197, 208, 256])
+def test_wgmma_backward_fits_shared_memory(n):
+    """The wgmma backward's block holds one stage of four 64-row tiles each
+    of Q, K, V and g, two 8 KB gradient stagings, the statistics of 256
+    query rows (three f32 each), two mbarriers, aligned to 1 KB: 151,568
+    bytes at any N it takes, the sum csrc/slab_attention_bwd_sm90.cu states,
+    under an H100 block's opt-in (what is left cannot hold a second stage of
+    128 KB)."""
+    need = port.kernel_smem_bytes("wgmma", True, n, 64)
+    assert need == 1024 + 16 * 8192 + 2 * 8192 + 3 * 256 * 4 + 2 * 8 == 151568
+    assert need == _c_smem_sum("slab_attention_bwd_sm90.cu")
+    assert need <= H100_SMEM_OPTIN < need + 4 * 4 * 8192
+    assert port.kernel_smem_bytes("wgmma", False, n, 64) == _c_smem_sum(
+        "slab_attention_fwd_sm90.cu")
+
+
 def test_route_launches_counts_every_route():
     assert set(port.route_launches) == {"wgmma", "mma", "simt"}
     assert set(port._ALIGN) == set(port.route_launches)
@@ -443,6 +471,27 @@ def test_wgmma_route_has_no_cpu_mode():
     out = port.slab_attention_forward(x, 2)
     assert (port.launches, port.route_launches) == before
     assert torch.equal(out, port.slab_attention_reference(x, 2))
+
+
+@pytest.mark.parametrize("n", [1, 17, 197])
+def test_wgmma_backward_has_no_cpu_mode(n):
+    """On the CPU the backward is the plain version whatever the route would
+    be: at bf16 and head dim 64 (the wgmma route) K2 and K3's backward
+    count no launch and equal their references bit for bit."""
+    x = torch.from_numpy(_slab(2, n, 128, seed=38)).to(torch.bfloat16)
+    g = torch.from_numpy(_slab(2, n, 128, seed=39)[..., :128]).to(
+        torch.bfloat16)
+    assert port.kernel_route(x.dtype, 64, n, backward=True) == "wgmma"
+    before = (port.bwd_launches, port.packed_bwd_launches,
+              dict(port.route_launches))
+    got = port.slab_attention_backward(x, g, 2)
+    packed = port.packed_attention_backward(*x.split(128, -1), g, 2)
+    assert (port.bwd_launches, port.packed_bwd_launches,
+            port.route_launches) == before
+    assert torch.equal(got, port.slab_attention_backward_reference(x, g, 2))
+    for ours, want in zip(packed, port.packed_attention_backward_reference(
+            *x.split(128, -1), g, 2)):
+        assert torch.equal(ours, want)
 
 
 def _on_route(want, launches, run):
@@ -520,8 +569,9 @@ def test_three_operand_kernels_match_plain_on_gpu(require_cuda, b, n, c, heads,
 def test_backward_kernel_matches_plain_on_gpu(require_cuda, b, n, c, heads,
                                              dtype):
     """K2 against the plain backward on the card: bf16 rounds P, dS and the
-    output (2^-8 steps), f32 differs by summation order only; bf16 on the
-    mma route, f32 on the SIMT route; a shape past shared memory raises."""
+    output (2^-8 steps), f32 differs by summation order only; each launch
+    on the route kernel_route names (bf16 at D 64 and N <= 256 wgmma, other
+    bf16 mma, f32 SIMT); a shape past shared memory raises."""
     tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
            else dict(atol=1e-4, rtol=1e-4))
     x = torch.from_numpy(_slab(b, n, c, seed=11)).to("cuda", dtype)
@@ -616,3 +666,54 @@ def test_wgmma_route_on_strided_views_on_gpu(require_cuda, b, n, c, heads):
 def require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", _WGMMA_CASES)
+def test_wgmma_backward_matches_plain_on_gpu(require_cuda, b, n, c, heads):
+    """K2 on the wgmma route against the plain backward within the bf16
+    bounds of the other kernels (P, dS and the gradients rounded to bf16,
+    2^-8 steps) and in norm within 1e-3; two launches bit-equal (no atomics,
+    a fixed order); K3's backward on the same values equals K2 bit for bit
+    (the same device code); and the mma.sync kernel (S5's full peel) lies
+    within the same bounds of it."""
+    from touhouimageclassification_tpu_torch.ops import attention_study
+
+    x = torch.from_numpy(_slab(b, n, c, seed=43)).to("cuda", torch.bfloat16)
+    g = torch.from_numpy(_slab(b, n, c, seed=44)[..., :c]).to(
+        "cuda", torch.bfloat16)
+    out = _on_route("wgmma", 1, lambda: port.slab_attention_backward(
+        x, g, heads))
+    ref = port.slab_attention_backward_reference(x, g, heads).float()
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    assert ((out.float() - ref).norm() / ref.norm()).item() < 1e-3
+    assert torch.equal(out, port.slab_attention_backward(x, g, heads))
+    packed = _on_route("wgmma", 1, lambda: port.packed_attention_backward(
+        *(y.contiguous() for y in x.split(c, -1)), g, heads))
+    assert torch.equal(torch.cat(packed, -1), out)
+    mma = attention_study.slab_attention_peel_backward(x, g, heads, "full")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), mma.float(), atol=2e-2, rtol=2e-2)
+    assert ((out.float() - mma.float()).norm() / mma.float().norm()).item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_wgmma_routes_from_a_fresh_thread_on_gpu(require_cuda):
+    """K1 and K2 on wgmma launched from a thread whose first CUDA call they
+    are (as autograd's worker thread launches K2 when the attention
+    backward is its first operation) equal the main thread's launches: the
+    tensor-map encoder binds the thread to its device's context first."""
+    import threading
+
+    x = torch.from_numpy(_slab(2, 197, 768, seed=45)).to("cuda", torch.bfloat16)
+    g = torch.from_numpy(_slab(2, 197, 768, seed=46)[..., :768]).to(
+        "cuda", torch.bfloat16)
+    got = {}
+    thread = threading.Thread(target=lambda: got.update(
+        fwd=port.slab_attention_forward(x, 12),
+        bwd=port.slab_attention_backward(x, g, 12)))
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    assert torch.equal(got["fwd"], port.slab_attention_forward(x, 12))
+    assert torch.equal(got["bwd"], port.slab_attention_backward(x, g, 12))

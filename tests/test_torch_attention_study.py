@@ -434,9 +434,8 @@ def _gpu_slab(n=197, c=1024, seed=0):
 @pytest.mark.parametrize("level", study.PEEL_LEVELS)
 def test_forward_peel_kernel_matches_plain_on_gpu(require_cuda, level):
     """``dma`` and ``layout`` bit for bit, ``matmul`` and ``full`` within
-    the bf16 bound of the K1 checks; ``full`` is K1 bit for bit."""
-    from touhouimageclassification_tpu_torch.ops import attention
-
+    the bf16 bound of the K1 checks; ``full`` is K1's mma.sync kernel bit
+    for bit."""
     qkv = _gpu_slab()
     before = study.peel_launches[level]
     got = study.slab_attention_peel_forward(qkv, 16, level)
@@ -447,8 +446,9 @@ def test_forward_peel_kernel_matches_plain_on_gpu(require_cuda, level):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
-    if level == "full":
-        assert torch.equal(got, attention.slab_attention_forward(qkv, 16))
+    if level == "full":  # K1's mma.sync kernel, the route before wgmma
+        assert torch.equal(got, study.softmax_variant_forward(qkv, 16, True,
+                                                              False))
 
 
 @pytest.mark.cuda
@@ -465,8 +465,14 @@ def test_backward_peel_kernel_matches_plain_on_gpu(require_cuda, level):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
-    if level == "full":
-        assert torch.equal(got, attention.slab_attention_backward(qkv, g, 16))
+    if level == "full":  # K2's mma.sync kernel, the route before wgmma
+        lib = attention.load_library()
+        mma = torch.empty_like(qkv)
+        stats = torch.empty(3, 4, 16, 197, device="cuda")
+        assert lib.tic_slab_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), mma.data_ptr(), stats.data_ptr(), 4,
+            197, 16, 64, 1, 0.125, torch.cuda.current_stream().cuda_stream) == 0
+        assert torch.equal(got, mma)
 
 
 @pytest.mark.cuda

@@ -670,15 +670,14 @@ def _gpu_slab(b=3, n=197, c=1024, seed=0):
 @pytest.mark.parametrize("tile", [*study.FWD_TILES, study.SHIPPED_TILE],
                          ids=_key)
 def test_tile_forward_kernel_is_k1_on_gpu(require_cuda, tile):
-    """Each forward tile is K1 bit for bit and within the bf16 bound of the
-    plain version; the launch counts once."""
-    from touhouimageclassification_tpu_torch.ops import attention
-
+    """Each forward tile is K1's mma.sync kernel (S2's exp2 variant, K1's
+    route before wgmma) bit for bit and within the bf16 bound of the plain
+    version; the launch counts once."""
     qkv = _gpu_slab()
     before = study.tile_launches.get(tile, 0)
     got = study.slab_attention_tile_forward(qkv, 16, tile)
     assert study.tile_launches[tile] == before + 1
-    assert torch.equal(got, attention.slab_attention_forward(qkv, 16))
+    assert torch.equal(got, study.softmax_variant_forward(qkv, 16, True, False))
     torch.testing.assert_close(
         got.float(), study.slab_attention_reference(qkv, 16).float(),
         atol=2e-2, rtol=2e-2)
@@ -688,12 +687,14 @@ def test_tile_forward_kernel_is_k1_on_gpu(require_cuda, tile):
 @pytest.mark.parametrize("tile", [*study.BWD_TILES, study.SHIPPED_TILE],
                          ids=_key)
 def test_tile_backward_kernel_is_k2_on_gpu(require_cuda, tile):
-    from touhouimageclassification_tpu_torch.ops import attention
-
+    """Each backward tile is K2's mma.sync kernel (S5's full peel, K2's route
+    before wgmma) bit for bit and within the bf16 bound of the plain
+    version."""
     qkv = _gpu_slab()
     g = _gpu_slab(seed=1)[..., :1024].contiguous()
     got = study.slab_attention_tile_backward(qkv, g, 16, tile)
-    assert torch.equal(got, attention.slab_attention_backward(qkv, g, 16))
+    assert torch.equal(got, study.slab_attention_peel_backward(qkv, g, 16,
+                                                               "full"))
     torch.testing.assert_close(
         got.float(),
         study.slab_attention_backward_reference(qkv, g, 16).float(),

@@ -8,6 +8,9 @@
 //   gradient [dQ | dK | dV] out;
 // - _packed_bwd_kernel (K3, packed_attention's VJP): three (B, N, C)
 //   operands in, three gradients out.
+// The bf16 backward at head dim 64 and N <= 256 (every model preset) runs
+// slab_attention_bwd_sm90.cu instead (route 'wgmma'); this file's bf16
+// kernels take the other bf16 shapes, and the studies peel them (S5).
 // Both are one device kernel pair per dtype over three input base pointers
 // with a shared batch and row stride, and three output base pointers with
 // theirs: the slab is (slab, slab + C, slab + 2C) with row stride 3C, K3's

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels written for it: the
 // patch embedding's wgmma route (patch_embed.cu, K5) and the attention
-// forward's wgmma route (slab_attention_fwd_sm90.cu: K1, K3's forward, K4).
-// - wgmma.mma_async: m64nNk16 for N 64, 128 (K5), 192, 208 and 256 with
+// wgmma routes (slab_attention_fwd_sm90.cu: K1, K3's forward, K4;
+// slab_attention_bwd_sm90.cu: K2, K3's backward).
+// - wgmma.mma_async: m64nNk16 for N 16, 64, 128 (K5), 192, 208 and 256 with
 //   both operands in shared memory and a scale-d argument (wgmma_ss,
 //   overloaded on the accumulator's size), and m64n64k16 with A in
 //   registers and B MN-major (wgmma_rs_tnsp_b);
@@ -21,7 +22,8 @@
 //   of hanging the card), TMA tile loads (2-D, 3-D), the async-proxy fence,
 //   register fences around wgmma, named barriers, setmaxnreg;
 // - the host's tensor-map encoder, taken from the driver at run time
-//   (cudaGetDriverEntryPoint), so nothing links libcuda.
+//   (cudaGetDriverEntryPoint), so nothing links libcuda, with the calling
+//   thread bound to its device's context first.
 #pragma once
 
 #include <cuda.h>
@@ -35,6 +37,18 @@ namespace sm90 {
 // d (+)= A B with wgmma.mma_async m64nNk16, N = 2 x the accumulator's size,
 // both operands in shared memory (descriptors a, b; both K-major); scale_d 0
 // ignores d's old values (the first k step), 1 accumulates.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                          int scale_d) {
   asm volatile(
@@ -333,7 +347,15 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // cuTensorMapEncodeTiled from the driver, looked up once through the runtime.
+// The encoder is a driver call and needs a current context, which a thread
+// whose first CUDA call this is (autograd's worker thread when the
+// attention backward is its first operation, a daemon's) does not have yet:
+// every call first makes the current device's primary context current on
+// the calling thread. nullptr if that or the lookup fails.
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
+    return nullptr;
   static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: attention forward
-(the ``mma.sync`` / SIMT source and the Hopper ``wgmma`` source) and
-backward, patch embedding, and the kernel studies' slab null copy and
+and backward (each an ``mma.sync`` / SIMT source and a Hopper ``wgmma``
+source), patch embedding, and the kernel studies' slab null copy and
 attention tiles) with ``nvcc`` + ctypes.
 
 Each source compiles to an object file, all of them at once (one ``nvcc``
@@ -121,6 +121,19 @@ def load_library() -> ctypes.CDLL:
                                       ptr, i64, i32, ptr, i32, i32, i32, i32,
                                       i32, f32, ptr]
     lib.tic_attention_bwd.restype = i32
+    lib.tic_slab_attention_bwd_sm90.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                                i32, i32, f32, ptr]
+    lib.tic_slab_attention_bwd_sm90.restype = i32
+    lib.tic_slab_attention_bwd_sm90_form.argtypes = [ptr, ptr, ptr, ptr, i32,
+                                                     i32, i32, i32, f32, i32,
+                                                     ptr]
+    lib.tic_slab_attention_bwd_sm90_form.restype = i32
+    lib.tic_attention_bwd_sm90.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr,
+                                           ptr, ptr, i64, i32, ptr, i32, i32,
+                                           i32, i32, f32, ptr]
+    lib.tic_attention_bwd_sm90.restype = i32
+    lib.tic_slab_attention_bwd_sm90_smem_bytes.argtypes = [i32, i32]
+    lib.tic_slab_attention_bwd_sm90_smem_bytes.restype = ctypes.c_size_t
     lib.tic_attention_bwd_probes.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr,
                                              ptr, ptr, i64, i32, ptr, i32, i32,
                                              i32, i32, f32, ptr, ptr, ptr]

@@ -25,15 +25,17 @@ launches the kernel or raises:
   or ``csrc/slab_attention_fwd.cu``, which read q, k and v through three
   base pointers (or tensor maps) and a row stride;
 - K2 :func:`slab_attention_backward` and K3 :func:`packed_attention_backward`
-  launch ``csrc/slab_attention_bwd.cu`` the same way.
+  launch ``csrc/slab_attention_bwd_sm90.cu`` or ``csrc/slab_attention_bwd.cu``
+  the same way.
 
-The device route is a rule on the shape (:func:`kernel_route`): the bf16
-forward at head dim 64 and N <= 256 (every model preset) runs the Hopper
-kernel ``'wgmma'`` (TMA loads, warp-specialised ``wgmma``, scores held in
-registers); other bf16 shapes and every backward run on the tensor cores
-through ``mma.sync`` fed by ``cp.async`` (``'mma'``); f32 runs on SIMT FMAs
-(``'simt'``; tensor cores take f32 only as TF32). A launch the route cannot
-take raises; nothing falls back.
+The device route is a rule on the shape (:func:`kernel_route`), the same in
+both directions: bf16 at head dim 64 and N <= 256 (every model preset) runs
+the Hopper kernels ``'wgmma'`` (TMA loads, warp-specialised ``wgmma``,
+scores held in registers; the backward loads each head's four operands once
+and forms all its products there); other bf16 shapes run on the tensor
+cores through ``mma.sync`` fed by ``cp.async`` (``'mma'``); f32 runs on SIMT
+FMAs (``'simt'``; tensor cores take f32 only as TF32). A launch the route
+cannot take raises; nothing falls back.
 
 ``launches``, ``bwd_launches`` (K1, K2), ``packed_launches``,
 ``packed_bwd_launches`` (K3) and ``flash_launches`` (K4) count launches, and
@@ -57,8 +59,9 @@ route_launches = {"wgmma": 0, "mma": 0, "simt": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
 _HEAD_DIMS = (32, 64, 128)
-# The wgmma route's shapes: the bf16 forward at this head dim and at most
-# this many tokens (its scores stay in registers, 64 x N f32 a warpgroup).
+# The wgmma route's shapes: bf16 at this head dim and at most this many
+# tokens (its scores stay in registers, 64 x N f32 a warpgroup), forward and
+# backward.
 WGMMA_HEAD_DIM = 64
 WGMMA_MAX_N = 256
 # Bytes a kernel reads at once: the wgmma route's TMA needs 16-byte aligned
@@ -169,18 +172,18 @@ def slab_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
 def kernel_route(dtype: torch.dtype, head_dim: int, n: int,
                  backward: bool = False) -> str:
     """The device route an attention launch takes for ``dtype``, head dim,
-    N tokens and direction: ``'wgmma'`` (the bf16 forward at head dim 64 and
-    N <= 256: TMA + ``wgmma``), ``'mma'`` (every other bf16 launch:
-    ``mma.sync``) or ``'simt'`` (f32). Raises for any other dtype or a head
-    dim outside ``(32, 64, 128)``."""
+    N tokens and direction (forward, or ``backward``): ``'wgmma'`` (bf16 at
+    head dim 64 and N <= 256, either direction: TMA + ``wgmma``), ``'mma'``
+    (every other bf16 launch: ``mma.sync``) or ``'simt'`` (f32). Raises for
+    any other dtype or a head dim outside ``(32, 64, 128)``."""
     if dtype not in _ROUTES:
         raise TypeError(f"attention kernels take float32 or bfloat16, got "
                         f"{dtype}")
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"attention kernels take head dims {_HEAD_DIMS}, got "
                          f"{head_dim}")
-    if (dtype == torch.bfloat16 and not backward
-            and head_dim == WGMMA_HEAD_DIM and n <= WGMMA_MAX_N):
+    if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM
+            and n <= WGMMA_MAX_N):
         return "wgmma"
     return _ROUTES[dtype]
 
@@ -189,11 +192,14 @@ def kernel_smem_bytes(route: str, backward: bool, n: int, d: int) -> int:
     """Dynamic shared memory one block of the forward (or the larger pass of
     the backward) needs at N rows and head dim D; the same sums as the C
     functions ``tic_slab_attention_{fwd,bwd}_smem_bytes`` and
-    ``tic_slab_attention_fwd_sm90_smem_bytes``.
+    ``tic_slab_attention_{fwd,bwd}_sm90_smem_bytes``.
 
-    - wgmma (forward only, any N it takes): two ring stages of four 64-row
-      tiles each of Q, K and V (8 KB a tile), two 8 KB output stagings, four
-      mbarriers and 1 KB to align the tiles to 1024 bytes;
+    - wgmma, any N it takes: forward, two ring stages of four 64-row tiles
+      each of Q, K and V (8 KB a tile), two 8 KB output stagings, four
+      mbarriers and 1 KB to align the tiles to 1024 bytes; backward, one
+      stage of four tiles each of Q, K, V and g, two 8 KB gradient
+      stagings, m, 1 / l and D_i of 256 query rows in f32, two mbarriers and
+      the same 1 KB;
     - mma: K and V (backward pass 2: Q and g) of all N rows in bf16 at a
       pitch of D + 8, N rounded up to 16 and at least 64; pass 2 adds three
       f32 statistics per row;
@@ -201,6 +207,8 @@ def kernel_smem_bytes(route: str, backward: bool, n: int, d: int) -> int:
       scores per warp (forward one, backward two, and pass 2's statistics)."""
     if route == "wgmma":
         tile = 64 * d * 2
+        if backward:
+            return 1024 + 4 * 4 * tile + 2 * tile + 3 * WGMMA_MAX_N * 4 + 2 * 8
         return 1024 + 2 * 3 * 4 * tile + 2 * tile + 4 * 8
     if route == "mma":
         rows = max(-(-n // 16) * 16, 64)
@@ -296,9 +304,10 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
     (B, N, C) -> (B, N, 3C) [dq | dk | dv].
 
     CPU tensors take :func:`slab_attention_backward_reference`. CUDA tensors
-    launch K2 (both of its passes) on the current stream, without
-    synchronising; ``g`` is made contiguous first, as autograd may hand a
-    strided gradient."""
+    launch K2 on the current stream, without synchronising (on ``'wgmma'``
+    one launch, or two at small B * H; on ``'mma'`` and ``'simt'`` its two
+    passes); ``g`` is made contiguous first, as autograd may hand a strided
+    gradient."""
     global bwd_launches
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return slab_attention_backward_reference(qkv, g, num_heads)
@@ -323,10 +332,12 @@ def slab_attention_backward(qkv: torch.Tensor, g: torch.Tensor,
         stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
                             device=qkv.device)
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.tic_slab_attention_bwd(qkv.data_ptr(), g.data_ptr(),
-                                         dqkv.data_ptr(), stats.data_ptr(), b,
-                                         n, num_heads, d, code, d ** -0.5,
-                                         stream)
+        ptrs = (qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                stats.data_ptr(), b, n, num_heads, d)
+        if route == "wgmma":
+            err = lib.tic_slab_attention_bwd_sm90(*ptrs, d ** -0.5, stream)
+        else:
+            err = lib.tic_slab_attention_bwd(*ptrs, code, d ** -0.5, stream)
     if err:
         raise RuntimeError(f"slab_attention_backward kernel launch failed with "
                            f"CUDA error {err} (B={b}, N={n}, H={num_heads}, "
@@ -447,8 +458,8 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     each (B, N, C).
 
     CPU tensors take :func:`packed_attention_backward_reference`. CUDA
-    tensors launch the backward kernel (both passes) on the current stream,
-    without synchronising; ``g`` is made contiguous first."""
+    tensors launch the backward kernel (K2's device code) on the current
+    stream, without synchronising; ``g`` is made contiguous first."""
     global packed_bwd_launches
     if q.device.type == "cpu" and g.device.type == "cpu":
         return packed_attention_backward_reference(q, k, v, g, num_heads)
@@ -475,11 +486,13 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
                             device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tic_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    in_batch, in_row, g.data_ptr(),
-                                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                    n * c, c, stats.data_ptr(), b, n, num_heads,
-                                    d, code, d ** -0.5, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), in_batch, in_row,
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                n * c, c, stats.data_ptr(), b, n, num_heads, d)
+        if route == "wgmma":
+            err = lib.tic_attention_bwd_sm90(*ptrs, d ** -0.5, stream)
+        else:
+            err = lib.tic_attention_bwd(*ptrs, code, d ** -0.5, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} "
                            f"(B={b}, N={n}, H={num_heads}, D={d}, {q.dtype})")
@@ -490,8 +503,9 @@ def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def backward_probabilities(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            g: torch.Tensor, num_heads: int):
-    """A measurement on the card, on no path of the model: runs the bf16
-    backward (both passes) on three contiguous (B, N, C) CUDA operands and
+    """A measurement on the card, on no path of the model: runs the
+    ``mma.sync`` backward (both passes, whatever route :func:`kernel_route`
+    names for the shape) on three contiguous bf16 (B, N, C) CUDA operands and
     returns the probabilities each pass forms, two f32 (B, H, N, N) tensors
     P[i, j] (pass 1 by query rows, pass 2 by key rows), so that their
     difference can be read. Counts no launch."""
@@ -501,12 +515,12 @@ def backward_probabilities(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name} takes bf16 (B, N, C) operands, got "
                          f"{tuple(q.shape)} {q.dtype}")
     q, k, v, g = (x.contiguous() for x in (q, k, v, g))
-    (q, k, v), in_batch, in_row, b, n, c, route = _rows(name, (q, k, v),
-                                                        num_heads, True)
+    (q, k, v), in_batch, in_row, b, n, c, _ = _rows(name, (q, k, v),
+                                                    num_heads, True)
     d = c // num_heads
     lib = load_library()
     with torch.cuda.device(q.device):
-        _check_smem(name, lib, route, True, q, d, "two head operands")
+        _check_smem(name, lib, "mma", True, q, d, "two head operands")
         grads = [torch.empty_like(q) for _ in range(3)]
         stats = torch.empty((3, b, num_heads, n), dtype=torch.float32,
                             device=q.device)

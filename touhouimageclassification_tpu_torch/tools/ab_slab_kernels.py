@@ -12,9 +12,10 @@ port). The processes run in turns, other, this, this, other, per round, so
 that drift of the card or its host falls on both sides alike. Each prints
 the median of 30 CUDA-event timings of K1 and K2 at ViT-L batch 64 (B 64, N
 197, C 1024, H 16) in bf16 and in f32 (the device routes: bf16 ``mma`` or,
-for K1 since its Hopper redesign, ``wgmma``; f32 ``simt``), K1's bf16
-device time (``k1_device_ms``) and the route each side's bf16 K1 took
-(``k1_route``, read from the wrapper's ``route_launches``), and of K5 at
+for K1 and K2 since their Hopper redesigns, ``wgmma``; f32 ``simt``), K1's
+and K2's bf16 device time (``k1_device_ms``, ``k2_device_ms``) and the
+route each side's bf16 K1 and K2 took (``k1_route``, ``k2_route``, read
+from the wrapper's ``route_launches``), and of K5 at
 ViT-L batch 64 (64 images of 224x224, P 16, D 1024) in bf16 and f32: around one call
 (``k5_ms``, as K1 and K2) and on the device alone (``k5_device_ms``: 20
 back-to-back calls behind a spin kernel, median of 10; the bf16 kernel
@@ -77,10 +78,14 @@ img, w, bias = (x.to(torch.bfloat16) for x in (img32, w32, b32))
 k5 = lambda: pe.patch_embed_forward(img, w, bias, 16)
 k5_32 = lambda: pe.patch_embed_forward(img32, w32, b32, 16)
 
-before = dict(attn.route_launches)
-attn.slab_attention_forward(qkv, 16)
-torch.cuda.synchronize()
-k1_route = [r for r in before if attn.route_launches[r] != before[r]]
+def route(fn):
+    before = dict(attn.route_launches)
+    fn()
+    torch.cuda.synchronize()
+    return [r for r in before if attn.route_launches[r] != before[r]]
+
+k1_route = route(lambda: attn.slab_attention_forward(qkv, 16))
+k2_route = route(lambda: attn.slab_attention_backward(qkv, g, 16))
 from touhouimageclassification_tpu_torch.models import create_model
 vit = create_model("vit-large", num_classes=120, device=dev).eval()
 images = torch.randn(64, 224, 224, 3, generator=gen, device=dev)
@@ -89,12 +94,14 @@ with torch.inference_mode():
 del vit
 
 print(json.dumps({
-    "k1_route": k1_route,
+    "k1_route": k1_route, "k2_route": k2_route,
     "vit_l_b64_forward_ms": vit_ms,
     "k1_ms": ms(lambda: attn.slab_attention_forward(qkv, 16)),
     "k1_device_ms": ms(lambda: attn.slab_attention_forward(qkv, 16), reps=10,
                        calls=20),
     "k2_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16)),
+    "k2_device_ms": ms(lambda: attn.slab_attention_backward(qkv, g, 16),
+                       reps=10, calls=20),
     "k1_f32_ms": ms(lambda: attn.slab_attention_forward(qkv32, 16)),
     "k2_f32_ms": ms(lambda: attn.slab_attention_backward(qkv32, g32, 16)),
     "k5_ms": ms(k5), "k5_device_ms": ms(k5, reps=10, calls=20),
@@ -151,10 +158,11 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     print(json.dumps({side: {k: statistics.median(r[k] for r in rs)
-                             for k in rs[0] if k not in ("lib", "k1_route")}
+                             for k in rs[0]
+                             if k not in ("lib", "k1_route", "k2_route")}
                       for side, rs in runs.items()}))
-    print(json.dumps({"k1_route": {side: rs[0].get("k1_route")
-                                   for side, rs in runs.items()}}))
+    print(json.dumps({key: {side: rs[0].get(key) for side, rs in runs.items()}
+                      for key in ("k1_route", "k2_route")}))
     here = set(sass(runs["this"][0]["lib"]).values())
     other = sass(runs["other"][0]["lib"])
     print(json.dumps({"other_kernels": len(other), "without_same_sass_here": [

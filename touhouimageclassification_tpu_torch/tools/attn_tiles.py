@@ -21,13 +21,13 @@ TPU tool's own key (``block_b``, ``exp2`` and ``post_mul``, ``variant``,
 - the grid's blocks, the ring's stages and a block's shared memory;
 - max |diff| and relative difference in norm against the plain version, and
   whether the output equals K1's ``mma.sync`` forward (S2's exp2 variant
-  without post_mul: ``fwd_bit_equal_mma``) and K2 (``bwd_bit_equal_k2``)
-  bit for bit;
+  without post_mul: ``fwd_bit_equal_mma``) and K2's ``mma.sync`` backward
+  (S5's ``full`` peel: ``bwd_bit_equal_mma``) bit for bit;
 - the bound (bytes: the slab, and g, read once, the output written once, at
   3.35 TB/s; the products come in under it) and the device time's share.
 
-Per batch one ``baseline`` record: K1 and K2 (the model's launches: K1 on
-its ``wgmma`` route) one launch and device time; the tile kernels on K1's
+Per batch one ``baseline`` record: K1 and K2 (the model's launches, on
+their ``wgmma`` routes) one launch and device time; the tile kernels on K1's
 ``mma.sync`` tile
 (``SHIPPED_TILE``), device time, which is what the tile machinery costs
 against that kernel; and the plain versions' time. The library yardstick (PyTorch's
@@ -81,7 +81,7 @@ def _diff(out, ref) -> dict:
 def baseline(b: int, reps: int) -> dict:
     """K1, K2, the tiles on K1's mma.sync grid and the plain versions at
     batch ``b`` (see the module docstring), with the outputs the tiles are
-    held to: the mma.sync forward and K2."""
+    held to: the mma.sync forward and backward."""
     import torch
 
     from ..ops import attention as attn
@@ -91,10 +91,10 @@ def baseline(b: int, reps: int) -> dict:
         qkv, g = _inputs(torch, b)
         shipped = study.SHIPPED_TILE
         mma_fwd = study.softmax_variant_forward(qkv, HEADS, True, False)
-        k2 = attn.slab_attention_backward(qkv, g, HEADS)
+        mma_bwd = study.slab_attention_peel_backward(qkv, g, HEADS, "full")
         bound = floors(b)
         return {
-            "outputs": (mma_fwd, k2),
+            "outputs": (mma_fwd, mma_bwd),
             "record": {
                 "batch": b, "baseline": {
                     "k1_ms": cuda_ms(torch, lambda: attn.slab_attention_forward(
@@ -174,7 +174,7 @@ def tile_backward(tile, b: int, reps: int) -> dict:
         rec = {f"bwd_{k}": v for k, v in _diff(
             out, study.slab_attention_backward_reference(qkv, g, HEADS)
         ).items()}
-        rec["bwd_bit_equal_k2"] = torch.equal(out, base["outputs"][1])
+        rec["bwd_bit_equal_mma"] = torch.equal(out, base["outputs"][1])
         rec.update(_timed(torch, run, reps, "bwd",
                           base["record"]["baseline"]["bwd_bound_ms"]))
         rec["bwd_plain_ms"] = base["record"]["baseline"]["plain_bwd_ms"]
