@@ -1,0 +1,18 @@
+"""K2's share of its roofline: its bytes bound at the step's batch
+(roofline.k2_bound_s) over its mean device time a launch, the time of the
+``'wgmma'`` backward kernel in the traced window over the launches the
+port counted (``ops.attention.bwd_launches``)."""
+from roofline import k2_bound_s
+from traced import kernel_seconds
+
+KERNEL = "attention_bwd_wgmma_kernel"
+
+
+def read(readings: dict):
+    _, seconds = kernel_seconds(readings.get("trace"), KERNEL)
+    calls = (readings.get("calls") or {}).get("k2", 0)
+    if not seconds or not calls:
+        return None
+    s = readings["shape"]
+    return 100.0 * k2_bound_s(readings["batch"], s["n"], s["hidden"]) / (
+        seconds / calls)
