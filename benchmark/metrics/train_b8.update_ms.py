@@ -1,0 +1,13 @@
+"""Host milliseconds a batch-8 training step spends launching the AdamW
+update: the port's ``trainer.update`` spans of the traced window over its
+``trainer.step`` spans."""
+from touhouimageclassification_tpu_torch.utils import profiling
+
+
+def read(readings: dict):
+    spans = profiling.recorded() if hasattr(profiling, "recorded") else []
+    steps = sum(s["name"] == "trainer.step" for s in spans)
+    if not steps:
+        return None
+    return sum(s["host_ms"] for s in spans
+               if s["name"] == "trainer.update") / steps

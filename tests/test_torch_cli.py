@@ -34,7 +34,6 @@ from touhouimageclassification_tpu_torch.train.checkpoint import (
 from touhouimageclassification_tpu_torch.utils import pretrained
 from touhouimageclassification_tpu_torch.utils.convert import (
     from_jax_params, torch_vit_to_flax)
-from touhouimageclassification_tpu_torch.utils.profiling import StepTimer
 
 torch.set_num_threads(1)
 
@@ -156,15 +155,6 @@ def test_cuda_without_a_card_raises(workdir, corpus, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ntrain.main([*_common(corpus), "--no-pretrained"])
-
-
-def test_step_timer_laps():
-    timer = StepTimer()
-    timer.start()
-    for _ in range(3):
-        timer.lap(torch.ones(2) * 2)
-    summary = timer.summary()
-    assert summary["steps"] == 3 and summary["max_s"] >= summary["p50_s"] >= 0
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ from ..train.checkpoint import (SERVING_META, SERVING_PARAMS, load_params,
 from ..utils.convert import (convert_checkpoint, member_overrides,
                              read_checkpoint)
 from ..utils.mean_std import get_mean_std
+from ..utils.profiling import span
 
 # Default checkpoint registry (serving exports), the JAX package's
 # ``model_checkpoints`` path for path: a training run's ``--transform``
@@ -187,10 +188,12 @@ class Predictor:
         bucket = next((b for b in BUCKETS if b >= n), None)
         if bucket is None:
             return None
-        host = torch.zeros((bucket, *images_u8.shape[1:]), dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
-        host[:n] = torch.from_numpy(np.ascontiguousarray(images_u8))
-        return host.to(self.device, non_blocking=True)
+        with span("predict.stage", rows=n, bucket=bucket):
+            host = torch.zeros((bucket, *images_u8.shape[1:]),
+                               dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            host[:n] = torch.from_numpy(np.ascontiguousarray(images_u8))
+            return host.to(self.device, non_blocking=True)
 
     def warmup(self, buckets=BUCKETS) -> None:
         """One forward of a blank batch per bucket, through the staging
@@ -203,7 +206,10 @@ class Predictor:
 
     def predict_staged(self, staged, count: int) -> tuple[np.ndarray, np.ndarray]:
         """Predict on a batch previously staged with :meth:`stage`."""
-        out = self._predict(staged).cpu().numpy()
+        with span("predict.forward"):
+            out = self._predict(staged)
+        with span("predict.fetch"):
+            out = out.cpu().numpy()
         return out[0, :count].astype(np.int64), out[1, :count]
 
     def predict_array(self, images_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -214,8 +220,11 @@ class Predictor:
         outs = []
         for i in range(0, max(len(images_u8), 1), step):
             chunk = images_u8[i:i + step]
-            outs.append((self._predict(self.stage(chunk)), len(chunk)))
-        host = [(out.cpu().numpy(), cnt) for out, cnt in outs]
+            staged = self.stage(chunk)
+            with span("predict.forward"):
+                outs.append((self._predict(staged), len(chunk)))
+        with span("predict.fetch"):
+            host = [(out.cpu().numpy(), cnt) for out, cnt in outs]
         return (np.concatenate([o[0, :c] for o, c in host]).astype(np.int64),
                 np.concatenate([o[1, :c] for o, c in host]))
 
@@ -397,99 +406,121 @@ def full_judge(
 
     from ..data.loader import decode_batch_into
 
-    entries: list[tuple[str, str, str]] = []  # (filename, label, path)
-    for root, _dirs, files in os.walk(image_dir):
-        for filename in sorted(files):
-            if os.path.splitext(filename)[1].lower() in IMG_EXTENSIONS:
-                entries.append((filename, os.path.basename(root),
-                                os.path.join(root, filename)))
-    print(f"scoring {len(entries)} images under {image_dir}")
+    with span("judge.sweep") as sweep:
+        with span("judge.open"):
+            entries: list[tuple[str, str, str]] = []  # (filename, label, path)
+            for root, _dirs, files in os.walk(image_dir):
+                for filename in sorted(files):
+                    if (os.path.splitext(filename)[1].lower()
+                            in IMG_EXTENSIONS):
+                        entries.append((filename, os.path.basename(root),
+                                        os.path.join(root, filename)))
+            print(f"scoring {len(entries)} images under {image_dir}")
 
-    mode = {True: "on", False: "off"}.get(canvas_cache, canvas_cache)
-    cache, slot_of_path, canvas = _judge_canvas_cache(
-        image_dir, predictor.image_size, mode)
-    if cache is not None and not all(e[2] in slot_of_path for e in entries):
-        # files outside the class-dir layout: judge without the cache
-        cache, canvas = None, predictor.image_size
-    if cache is not None:
-        print(f"canvas cache: {canvas[0]}x{canvas[1]}, "
-              f"{cache.hit_rate() * 100:.0f}% warm")
+            mode = {True: "on", False: "off"}.get(canvas_cache, canvas_cache)
+            cache, slot_of_path, canvas = _judge_canvas_cache(
+                image_dir, predictor.image_size, mode)
+            if cache is not None and not all(e[2] in slot_of_path
+                                             for e in entries):
+                # files outside the class-dir layout: judge without the cache
+                cache, canvas = None, predictor.image_size
+            if cache is not None:
+                print(f"canvas cache: {canvas[0]}x{canvas[1]}, "
+                      f"{cache.hit_rate() * 100:.0f}% warm")
 
-    out_f = csv_w = None
-    if output:
-        import csv as _csv
+            out_f = csv_w = None
+            if output:
+                import csv as _csv
 
-        # csv.writer quotes commas for filter's DictReader; the \n terminator
-        # keeps byte parity with the reference's CSVs
-        out_f = open(output, "w", newline="")
-        csv_w = _csv.writer(out_f, lineterminator="\n")
-        csv_w.writerow(["filename", "predicted_class", "confidence",
-                        "actual_class", "correct", "path"])
+                # csv.writer quotes commas for filter's DictReader; the \n
+                # terminator keeps byte parity with the reference's CSVs
+                out_f = open(output, "w", newline="")
+                csv_w = _csv.writer(out_f, lineterminator="\n")
+                csv_w.writerow(["filename", "predicted_class", "confidence",
+                                "actual_class", "correct", "path"])
 
-    def prep(chunk):
-        imgs = np.empty((len(chunk), *canvas, 3), np.uint8)
-        paths = [e[2] for e in chunk]
-        # undecodable slots are zero-filled, skipped in the CSV and accuracy
+        def prep(chunk):
+            # on the prep thread, under the sweep's span
+            with span("judge.prep", parent=sweep):
+                imgs = np.empty((len(chunk), *canvas, 3), np.uint8)
+                paths = [e[2] for e in chunk]
+                # undecodable slots are zero-filled, skipped in the CSV and
+                # accuracy
+                if cache is not None:
+                    ids = np.asarray([slot_of_path[p] for p in paths])
+                    with span("judge.fetch") as fetch:
+                        hit = cache.fetch(ids, imgs)
+                        hits = int(np.count_nonzero(hit))
+                        fetch.set(hits=hits, misses=len(hit) - hits)
+                    miss = np.nonzero(~hit)[0]
+                    bad: set[int] = set()
+                    if miss.size:
+                        with span("judge.decode"):
+                            decoded = np.empty((miss.size, *canvas, 3),
+                                               np.uint8)
+                            failed = decode_batch_into(
+                                [paths[j] for j in miss], canvas, decoded,
+                                pool=pool, on_error="zero")
+                            imgs[miss] = decoded
+                            failed = np.asarray(sorted(failed), np.int64)
+                            bad = {int(j) for j in miss[failed]}
+                            # never mark an undecodable slot cache-done
+                            good = np.setdiff1d(np.arange(miss.size),
+                                                failed)
+                            if good.size:
+                                cache.store(ids[miss[good]], decoded[good])
+                else:
+                    with span("judge.decode"):
+                        failed = decode_batch_into(paths, canvas, imgs,
+                                                   pool=pool, on_error="zero")
+                    bad = {int(j) for j in failed}
+                staged = predictor.stage(imgs)
+                return ((imgs, None) if staged is None
+                        else (staged, len(chunk)), bad)
+
+        correct_cnt, cnt, skipped = 0, 0, []
+        starts = list(range(0, len(entries), batch_size))
+        iterator = starts
+        if progress:
+            import tqdm
+
+            iterator = tqdm.tqdm(starts, desc="Processing batches",
+                                 unit="batch")
+        with out_f or contextlib.nullcontext(), \
+                ThreadPoolExecutor(max_workers=16) as pool, \
+                ThreadPoolExecutor(max_workers=1) as ahead:
+            pending = (ahead.submit(prep, entries[:batch_size]) if starts
+                       else None)
+            for i, start in enumerate(iterator):
+                chunk = entries[start:start + batch_size]
+                with span("judge.prep_wait"):
+                    (imgs, staged_n), bad = pending.result()
+                if i + 1 < len(starts):  # overlap next prep with this predict
+                    nxt = entries[starts[i + 1]:starts[i + 1] + batch_size]
+                    pending = ahead.submit(prep, nxt)
+                with span("judge.predict"):
+                    if staged_n is not None:
+                        pred, conf = predictor.predict_staged(imgs, staged_n)
+                    else:
+                        pred, conf = predictor.predict_array(imgs)
+                with span("judge.csv"):
+                    for j, ((filename, label, path), p, c) in enumerate(
+                            zip(chunk, pred, conf)):
+                        if j in bad:
+                            skipped.append(path)
+                            continue
+                        predicted = predictor.idx_to_class[int(p)]
+                        ok = predicted == label
+                        cnt += 1
+                        correct_cnt += ok
+                        if csv_w:
+                            csv_w.writerow([filename, predicted,
+                                            f"{float(c):.4f}", label, ok,
+                                            path])
         if cache is not None:
-            ids = np.asarray([slot_of_path[p] for p in paths])
-            hit = cache.fetch(ids, imgs)
-            miss = np.nonzero(~hit)[0]
-            bad: set[int] = set()
-            if miss.size:
-                decoded = np.empty((miss.size, *canvas, 3), np.uint8)
-                failed = decode_batch_into(
-                    [paths[j] for j in miss], canvas, decoded, pool=pool,
-                    on_error="zero")
-                imgs[miss] = decoded
-                failed = np.asarray(sorted(failed), np.int64)
-                bad = {int(j) for j in miss[failed]}
-                # never mark an undecodable slot cache-done
-                good = np.setdiff1d(np.arange(miss.size), failed)
-                if good.size:
-                    cache.store(ids[miss[good]], decoded[good])
-        else:
-            failed = decode_batch_into(paths, canvas, imgs, pool=pool,
-                                       on_error="zero")
-            bad = {int(j) for j in failed}
-        staged = predictor.stage(imgs)
-        return ((imgs, None) if staged is None else (staged, len(chunk)),
-                bad)
-
-    correct_cnt, cnt, skipped = 0, 0, []
-    starts = list(range(0, len(entries), batch_size))
-    iterator = starts
-    if progress:
-        import tqdm
-
-        iterator = tqdm.tqdm(starts, desc="Processing batches", unit="batch")
-    with out_f or contextlib.nullcontext(), \
-            ThreadPoolExecutor(max_workers=16) as pool, \
-            ThreadPoolExecutor(max_workers=1) as ahead:
-        pending = ahead.submit(prep, entries[:batch_size]) if starts else None
-        for i, start in enumerate(iterator):
-            chunk = entries[start:start + batch_size]
-            (imgs, staged_n), bad = pending.result()
-            if i + 1 < len(starts):  # overlap next host prep with this predict
-                nxt = entries[starts[i + 1]:starts[i + 1] + batch_size]
-                pending = ahead.submit(prep, nxt)
-            if staged_n is not None:
-                pred, conf = predictor.predict_staged(imgs, staged_n)
-            else:
-                pred, conf = predictor.predict_array(imgs)
-            for j, ((filename, label, path), p, c) in enumerate(
-                    zip(chunk, pred, conf)):
-                if j in bad:
-                    skipped.append(path)
-                    continue
-                predicted = predictor.idx_to_class[int(p)]
-                ok = predicted == label
-                cnt += 1
-                correct_cnt += ok
-                if csv_w:
-                    csv_w.writerow([filename, predicted, f"{float(c):.4f}",
-                                    label, ok, path])
-    if cache is not None:
-        cache.flush()
+            with span("judge.flush"):
+                cache.flush()
+        sweep.set(images=cnt, skipped=len(skipped))
     acc = correct_cnt / cnt if cnt else 0.0
     if skipped:
         print(f"skipped {len(skipped)} undecodable image(s), e.g. "

@@ -87,7 +87,7 @@ from ..parallel import collectives, sharding
 from ..parallel.dist import world
 from ..parallel.mesh import create_mesh, process_input_view
 from ..utils.logging import get_logger
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from . import losses
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, global_norm
@@ -286,11 +286,14 @@ class Trainer:
         """Upload a loader batch: pinned host copies and non-blocking
         transfers on a CUDA device."""
         staged = {}
-        for key, value in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(value))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            staged[key] = t
+        with span("trainer.stage") as phase:
+            for key, value in batch.items():
+                t = torch.from_numpy(np.ascontiguousarray(value))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                staged[key] = t
+            phase.set(rows=len(staged["image"]),
+                      bytes=sum(t.nbytes for t in staged.values()))
         return staged
 
     def _inputs(self, state: TrainState, batch: dict[str, torch.Tensor]):
@@ -325,20 +328,25 @@ class Trainer:
         over the data group)."""
         model = state.model
         devices = [self.device.index] if self.device.type == "cuda" else []
+        dev = self.device
         with collectives.use_mesh(self.mesh):
-            images, labels, drop_seed, task_seed = self._inputs(state, batch)
-            task_gen = torch.Generator(device=self.device).manual_seed(
-                task_seed)
+            with span("trainer.inputs", device=dev):
+                images, labels, drop_seed, task_seed = self._inputs(state,
+                                                                    batch)
+            task_gen = torch.Generator(device=dev).manual_seed(task_seed)
             with torch.random.fork_rng(devices=devices,
                                        enabled=self._dropout):
                 if self._dropout:
                     torch.manual_seed(drop_seed)
-                outputs = self.task.forward(model, images, batch, True,
-                                            task_gen)
-                loss, aux = self.task.loss(outputs, labels)
-                loss.backward()
-        grads, sharded = self._reduced_gradients(model)
-        grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
+                with span("trainer.forward", device=dev):
+                    outputs = self.task.forward(model, images, batch, True,
+                                                task_gen)
+                    loss, aux = self.task.loss(outputs, labels)
+                with span("trainer.backward", device=dev):
+                    loss.backward()
+        with span("trainer.norm", device=dev):
+            grads, sharded = self._reduced_gradients(model)
+            grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
         return loss.detach(), aux, grad_norm
 
     def train_step(self, state: TrainState,
@@ -347,23 +355,27 @@ class Trainer:
         batch), NaN-guarded unless ``cfg.nan_guard`` is False; returns the
         fetched metrics (``loss``, ``grad_norm``, the task's scalars)."""
         model = state.model
-        model.zero_grad(set_to_none=True)
-        buffers, saved = self._buffers(model)
-        loss, aux, grad_norm = self._loss_and_grads(state, batch)
-        metrics = _fetch_scalars({"loss": loss, "grad_norm": grad_norm,
-                                  **aux})
-        self.host_syncs += 1
-        finite = (np.isfinite(metrics["loss"])
-                  and np.isfinite(metrics["grad_norm"]))
-        if finite or not self.cfg.nan_guard:
-            state.optimizer.update([p.grad for p in state.optimizer.params])
-        elif saved is not None:
-            with torch.no_grad():
-                for b, old in zip(buffers, saved.split(
-                        [b.numel() for b in buffers])):
-                    b.copy_(old.view_as(b))
-        model.zero_grad(set_to_none=True)
-        state.step += 1
+        with span("trainer.step", id=state.step, rows=len(batch["image"])):
+            model.zero_grad(set_to_none=True)
+            buffers, saved = self._buffers(model)
+            loss, aux, grad_norm = self._loss_and_grads(state, batch)
+            with span("trainer.fetch"):
+                metrics = _fetch_scalars({"loss": loss, "grad_norm": grad_norm,
+                                          **aux})
+            self.host_syncs += 1
+            finite = (np.isfinite(metrics["loss"])
+                      and np.isfinite(metrics["grad_norm"]))
+            if finite or not self.cfg.nan_guard:
+                with span("trainer.update", device=self.device):
+                    state.optimizer.update([p.grad
+                                            for p in state.optimizer.params])
+            elif saved is not None:
+                with torch.no_grad():
+                    for b, old in zip(buffers, saved.split(
+                            [b.numel() for b in buffers])):
+                        b.copy_(old.view_as(b))
+            model.zero_grad(set_to_none=True)
+            state.step += 1
         return metrics
 
     def train_steps(self, state: TrainState,
@@ -394,29 +406,34 @@ class Trainer:
         live = torch.ones((), dtype=torch.bool, device=self.device)
         first_step, marks, rows, keys = state.step, [], [], None
         for batch in batches:
-            model.zero_grad(set_to_none=True)
-            buffers, saved = self._buffers(model)
-            marks.append(opt.mark())
-            loss, aux, grad_norm = self._loss_and_grads(state, batch)
-            metrics = {"loss": loss, "grad_norm": grad_norm, **aux}
-            keys = [k for k, v in metrics.items()
-                    if torch.is_tensor(v) and v.dim() == 0]
-            if guard:
-                live = live & torch.isfinite(loss) & torch.isfinite(grad_norm)
-                held = opt.hold()
-            opt.update([p.grad for p in opt.params])
-            if guard:
-                opt.keep_if(live, held)
-                if saved is not None:
-                    with torch.no_grad():
-                        for b, old in zip(buffers, saved.split(
-                                [b.numel() for b in buffers])):
-                            torch.where(live, b, old.view_as(b), out=b)
-            model.zero_grad(set_to_none=True)
-            state.step += 1
-            rows.append(torch.stack([metrics[k].float() for k in keys]
-                                    + [live.float()]))
-        values = torch.stack(rows).cpu().tolist()
+            with span("trainer.step", id=state.step,
+                      rows=len(batch["image"])):
+                model.zero_grad(set_to_none=True)
+                buffers, saved = self._buffers(model)
+                marks.append(opt.mark())
+                loss, aux, grad_norm = self._loss_and_grads(state, batch)
+                metrics = {"loss": loss, "grad_norm": grad_norm, **aux}
+                keys = [k for k, v in metrics.items()
+                        if torch.is_tensor(v) and v.dim() == 0]
+                if guard:
+                    live = (live & torch.isfinite(loss)
+                            & torch.isfinite(grad_norm))
+                    held = opt.hold()
+                with span("trainer.update", device=self.device):
+                    opt.update([p.grad for p in opt.params])
+                if guard:
+                    opt.keep_if(live, held)
+                    if saved is not None:
+                        with torch.no_grad():
+                            for b, old in zip(buffers, saved.split(
+                                    [b.numel() for b in buffers])):
+                                torch.where(live, b, old.view_as(b), out=b)
+                model.zero_grad(set_to_none=True)
+                state.step += 1
+                rows.append(torch.stack([metrics[k].float() for k in keys]
+                                        + [live.float()]))
+        with span("trainer.fetch"):
+            values = torch.stack(rows).cpu().tolist()
         self.host_syncs += 1
         skipped = [j for j, row in enumerate(values) if not row[-1]]
         if skipped:
