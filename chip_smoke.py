@@ -166,9 +166,11 @@ fatal on failure:
     the restored trainer's.
 18. the options that last joined the port, after phase 17(d): (a) ViT-L
     ``nvit`` ``'fused'`` at batch 64 with remat off, ``'full'`` and
-    ``'dots'``: img/s over 5 steps after 2, peak memory (full < dots <
-    off), K1/K2 a step (24/24, 48/24, 48/24), and step 1's gradients of
-    both policies against remat off in f32 without TF32 (1e-5 a leaf);
+    ``'dots'``: img/s over 5 steps after 2, peak memory allocated over all
+    7 and reserved over the 5 replayed steps (the graph's pool holds the
+    activations), each full < dots < off, K1/K2 a step (24/24, 48/24,
+    48/24), and step 1's gradients of both policies against remat off in
+    f32 without TF32 (1e-5 a leaf);
     (b) ResNet-152 at 256x256, the ``resnet152`` preset at batch 80, from
     one initialisation with calibrated BN statistics: eval logits of
     ``'batch'``, ``'ghost'`` and ``'stale'`` equal to ``'flax'``'s, step
@@ -181,6 +183,11 @@ fatal on failure:
     and 3 of a call skipped as a single step skips it; (d)
     ``Predictor.warmup`` on phase 11's ViT-L export: K1 24 a bucket, then
     the first request.
+
+Every profiled train step (phases 10, 12, 15 and 18(a)) is a replay of
+the step's CUDA graph, and the K1, K2 and K5 kernels its trace holds must
+be the launches the counters credited it (K2 one or two kernels a launch,
+by its form).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of the
@@ -1492,7 +1499,7 @@ def phase_train_throughput(torch, attn, pe, create_model, Trainer, state_dict,
                 launches = made
             if variant == "fused" or (flash and b == 64):
                 profile(torch, lambda: trainer.train_step(state, batch),
-                        f"{variant} batch-{b} step")
+                        f"{variant} batch-{b} step", trainer)
             del trainer, state, batch
             torch.cuda.empty_cache()
     return launches, rates
@@ -1858,7 +1865,7 @@ def resnet_serve_and_train(torch, serve, create_model, Trainer, data: str,
     if not np.isfinite(m["loss"]) or state.optimizer.count != count + 10:
         raise AssertionError("ResNet-152 train steps not finite or skipped")
     profile(torch, lambda: trainer.train_step(state, batch),
-            f"ResNet-152 batch-{b} step")
+            f"ResNet-152 batch-{b} step", trainer)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     count = state.optimizer.count
     poisoned = dict(batch, image=batch["image"].float())
@@ -2527,7 +2534,7 @@ def train_numbers(torch, attn, trainer, batches, what: str,
           f"({1e3 * secs / steps:.2f} ms/step, {steps} steps), peak memory "
           f"{out['train_peak_gib']:.2f} GiB")
     profile(torch, lambda: trainer.train_step(state, batches[0]),
-            f"{what} batch-{b} step")
+            f"{what} batch-{b} step", trainer)
     return out, launches
 
 
@@ -3795,7 +3802,7 @@ def phase_remat(torch, attn, create_model, Trainer, state_dict, data: str,
                 np.int32),
             "mask": np.ones(REMAT_BATCH, bool)}
     cfg = nvit_config(data, global_batch_size=REMAT_BATCH)
-    launches, peaks = {}, {}
+    launches, peaks, reserved = {}, {}, {}
     for policy, over in REMAT_POLICIES.items():
         model = create_model("vit-large", num_classes=NUM_CLASSES,
                              compute_dtype="bfloat16", param_dtype="float32",
@@ -3804,9 +3811,16 @@ def phase_remat(torch, attn, create_model, Trainer, state_dict, data: str,
         trainer = Trainer(cfg, model=model, device=dev)
         state = trainer.init_state()
         batch = trainer.stage(host)
+        # the allocated peak from before the first steps, which run eagerly
+        # and capture the step's CUDA graph: replays allocate nothing, their
+        # activations live in the graph's pool, which the reserved peak over
+        # the replays holds
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(2):
             trainer.train_step(state, batch)
         torch.cuda.synchronize()
+        first = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts(attn)
         t0 = time.perf_counter()
@@ -3814,25 +3828,32 @@ def phase_remat(torch, attn, create_model, Trainer, state_dict, data: str,
             m = trainer.train_step(state, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        peaks[policy] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        peaks[policy] = max(first, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
+        reserved[policy] = torch.cuda.memory_stats(dev)[
+            "reserved_bytes.all.peak"] / 2 ** 30
+        if trainer.graph_replays != 6:
+            raise AssertionError(f"remat {policy}: {trainer.graph_replays} "
+                                 "replays in 7 steps, expected 6")
         k1 = 2 * layers if over else layers
         launches[policy] = read_counts(
             attn, f"18(a) remat {policy}, 5 steps", (5 * k1, 5 * layers))
         print(f"18(a) nvit 'fused' batch {REMAT_BATCH}, remat {policy}: "
               f"{5 * REMAT_BATCH / secs:.2f} img/s ({1e3 * secs / 5:.2f} "
-              f"ms/step), peak memory {peaks[policy]:.3f} GiB, K1/K2 a step "
+              f"ms/step), peak memory {peaks[policy]:.3f} GiB allocated, "
+              f"{reserved[policy]:.3f} GiB reserved, K1/K2 a step "
               f"{launches[policy][0] // 5}/{launches[policy][1] // 5}, last "
               f"loss {m['loss']:.4f}")
         if not np.isfinite(m["loss"]):
             raise AssertionError(f"remat {policy}: non-finite loss")
         profile(torch, lambda: trainer.train_step(state, batch),
-                f"remat {policy} batch-{REMAT_BATCH} step")
+                f"remat {policy} batch-{REMAT_BATCH} step", trainer)
         del trainer, state, model, batch
         gc.collect()
         torch.cuda.empty_cache()
-    if not peaks["full"] < peaks["dots"] < peaks["off"]:
-        raise AssertionError(f"peak memory by policy {peaks}: expected "
-                             "full < dots < off")
+    for what, read in (("allocated", peaks), ("reserved", reserved)):
+        if not read["full"] < read["dots"] < read["off"]:
+            raise AssertionError(f"peak memory {what} by policy {read}: "
+                                 "expected full < dots < off")
 
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -4249,13 +4270,29 @@ def phase_options(torch, attn, serve, create_model, Trainer, state_dict,
             "steps_per_call": spc, "warmup": (warm, 0)}
 
 
-def profile(torch, fn, label: str):
+def credited_launches() -> tuple[int, int, int]:
+    """The forward (K1, K3, K4), backward (K2, K3) and K5 launches the
+    port's counters hold."""
+    from touhouimageclassification_tpu_torch.ops import attention as attn
+    from touhouimageclassification_tpu_torch.ops import patch_embed as pe
+
+    return (attn.launches + attn.packed_launches + attn.flash_launches,
+            attn.bwd_launches + attn.packed_bwd_launches, pe.launches)
+
+
+def profile(torch, fn, label: str, trainer=None):
     """Device time by kernel of one ``fn()`` (a train step or a serve
-    forward), and the device's busy share of its wall time."""
+    forward), and the device's busy share of its wall time. Given the
+    ``trainer`` of a train step: that the step replayed its CUDA graph
+    (unless its shape fell back to eager) and that the attention and patch
+    embedding kernels in the trace are the launches credited to it, K2 one
+    or two kernels a launch (its one- or two-launch form)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
+    before = credited_launches()
+    replays = trainer.graph_replays if trainer is not None else 0
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4280,6 +4317,21 @@ def profile(torch, fn, label: str):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
+    if trainer is None:
+        return
+    kernels = tuple(sum(e.count for e in events if name in e.key)
+                    for name in ("attention_fwd_", "attention_bwd_",
+                                 "patch_embed_"))
+    credited = tuple(a - b for a, b in zip(credited_launches(), before))
+    replayed = trainer.graph_replays - replays
+    print(f"  {label}: replayed {replayed} (fallbacks "
+          f"{trainer.graph_fallbacks}); forward/backward/K5 kernels in the "
+          f"trace {kernels}, launches credited {credited}")
+    if (replayed != (0 if trainer.graph_fallbacks else 1)
+            or kernels[0] != credited[0] or kernels[2] != credited[2]
+            or kernels[1] not in (credited[1], 2 * credited[1])):
+        raise AssertionError(f"{label}: replayed {replayed}, kernels "
+                             f"{kernels} against credited {credited}")
 
 
 def main() -> int:

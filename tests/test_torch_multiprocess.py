@@ -152,7 +152,9 @@ def _port_draws(cfg, model_cfg, batches):
             mp.setattr(mixup, "sample_cutmix_or_mixup",
                        lambda rng, *a, host=host: sample(
                            _LoggedRng(rng, host), *a))
-            one._inputs(SimpleNamespace(step=step), one.stage(batch))
+            aug_seed, mix, _, _ = one._draws(SimpleNamespace(step=step))
+            one._inputs(one.stage(batch),
+                        torch.Generator().manual_seed(aug_seed), mix)
         draws.append((uniforms, host))
     return draws
 

@@ -315,11 +315,14 @@ def test_trace_writes_the_spans_beside_the_chrome_trace(tmp_path):
 
 
 @pytest.mark.cuda
-def test_device_ms_lies_inside_the_host_interval_and_its_queue(tmp_path):
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graph"])
+def test_device_ms_lies_inside_the_host_interval_and_its_queue(tmp_path,
+                                                               graphed):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     trainer, state = _trainer(tmp_path, device=dev)
+    trainer._graphable = graphed
     batches = [trainer.stage(b) for b in _batches(3)]
     trainer.train_step(state, batches[0])  # builds the kernels
     torch.cuda.synchronize()
@@ -330,11 +333,21 @@ def test_device_ms_lies_inside_the_host_interval_and_its_queue(tmp_path):
         drained = time.perf_counter_ns()
     spans = profiling.recorded()
     timed = [s for s in spans if s["device_ms"] is not None]
-    assert {s["name"] for s in timed} == {
-        "trainer.inputs", "trainer.forward", "trainer.backward",
-        "trainer.norm", "trainer.update"}
+    phases = {"trainer.inputs", "trainer.forward", "trainer.backward",
+              "trainer.norm"}
+    graphs = _named(spans, "trainer.graph")
+    assert len(graphs) == (2 if graphed else 0)
+    assert {s["name"] for s in timed} == phases | {"trainer.update"} | {
+        s["name"] for s in graphs}
+    for graph in graphs:
+        # the two steps after the first replay a captured graph: its phases
+        # are timed by the graph's own events, inside the replay's device
+        # time
+        inside = [s["device_ms"] for s in timed
+                  if s["id"] == graph["id"] and s["name"] in phases]
+        assert len(inside) == 4 and 0 < sum(inside) <= graph["device_ms"]
     fetched = [s["end_ns"] for s in _named(spans, "trainer.fetch")]
-    for s in timed:
+    for s in (s for s in timed if not (graphed and s["name"] in phases)):
         # the span's events ran on the stream between its start on the host
         # and the next time the host waited for the stream to drain (a
         # step's fetch, or the synchronisation above)

@@ -229,9 +229,14 @@ def test_cutmix_and_mixup_replay_jax(seed, is_cutmix):
     want_x, want_y = jmix.cutmix_or_mixup(key, x, labels)
     draw = _jax_draw(key, 16, 16)
     assert draw["cutmix"] == is_cutmix
-    got_x, got_y = mixup.apply_cutmix_or_mixup(_t(x), _t(labels), draw)
-    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), atol=1e-6)
-    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-6)
+    # the host-float form, and the device-vector form the trainer mixes with
+    params = torch.from_numpy(mixup.mix_params(draw, 16, 16))
+    for got_x, got_y in (mixup.apply_cutmix_or_mixup(_t(x), _t(labels), draw),
+                         mixup.apply_mix_params(_t(x), _t(labels), params)):
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                                   atol=1e-6)
 
 
 def test_mixup_sampler_draws_both_branches_and_valid_lambdas():

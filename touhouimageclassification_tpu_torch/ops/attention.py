@@ -55,6 +55,10 @@ packed_launches = 0
 packed_bwd_launches = 0
 flash_launches = 0
 route_launches = {"wgmma": 0, "mma": 0, "simt": 0}
+# every launch counter of this module, which a replayed CUDA graph credits
+# (``train/step_graph.py``)
+LAUNCH_COUNTERS = ("launches", "bwd_launches", "packed_launches",
+                   "packed_bwd_launches", "flash_launches", "route_launches")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}

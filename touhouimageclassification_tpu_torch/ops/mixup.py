@@ -10,8 +10,13 @@ clipped box, and the labels become ``lam * y + (1 - lam) * y_rolled``.
 The few batch-level scalars (coin, lambda, box centre) are drawn on the host
 from a ``numpy.random.Generator``: ``torch.distributions.Beta`` takes no
 generator, and a host draw picks the branch without waiting for the device.
-The scalars are f32, as the JAX package computes them. Under data
-parallelism the roll crosses ranks (``parallel.collectives.roll_rows``):
+The scalars are f32, as the JAX package computes them. The trainer mixes
+with :func:`apply_mix_params`, which takes the draw as a small device vector
+(:func:`mix_params`), so that a replayed CUDA graph, which cannot take host
+floats, mixes as an eager step does. :func:`apply_cutmix_or_mixup` is the same
+mix with the draw as host floats, one branch at a time: the form the tests
+hold against the JAX package and :func:`apply_mix_params` against. Under
+data parallelism the roll crosses ranks (``parallel.collectives.roll_rows``):
 each rank's first sample mixes with the previous rank's last, as in the
 global batch.
 """
@@ -78,9 +83,48 @@ def sample_cutmix_or_mixup(rng: np.random.Generator, h: int, w: int,
 
 def apply_cutmix_or_mixup(images: torch.Tensor, labels: torch.Tensor,
                           draw: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mix of a :func:`sample_cutmix_or_mixup` draw, its branch alone
+    (module docstring)."""
     if draw["cutmix"]:
         return cutmix(images, labels, draw["lam"], draw["cy"], draw["cx"])
     return mixup(images, labels, draw["lam"])
+
+
+def mix_params(draw: dict, h: int, w: int) -> np.ndarray:
+    """A draw of :func:`sample_cutmix_or_mixup` as the f32 vector that
+    :func:`apply_mix_params` reads: ``[cutmix, a, b, y0, y1, x0, x1]``.
+    The labels mix as ``a * y + b * y_rolled`` (lambda, or CutMix's lambda
+    recomputed from the clipped box, and 1 - it in f32), MixUp's images the
+    same way, and CutMix pastes the box (y0, y1, x0, x1), empty for MixUp."""
+    if draw["cutmix"]:
+        y0, y1, x0, x1, lam = cutmix_box(draw["lam"], draw["cy"], draw["cx"],
+                                         h, w)
+    else:
+        y0 = y1 = x0 = x1 = 0.0
+        lam = draw["lam"]
+    lam = np.float32(lam)
+    return np.array([draw["cutmix"], lam, np.float32(1.0) - lam, y0, y1, x0,
+                     x1], np.float32)
+
+
+def apply_mix_params(images: torch.Tensor, labels: torch.Tensor,
+                     params: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_cutmix_or_mixup` with the draw as a (7,) f32 tensor of
+    :func:`mix_params` on the images' device, so that the branch and its
+    numbers are data: a captured CUDA graph replays either. Both branches'
+    images are formed and one is selected, which gives the same values as
+    the branch alone."""
+    _, h, w, _ = images.shape
+    cut, a, b, y0, y1, x0, x1 = params.unbind()
+    rolled = roll_rows(images)
+    rows = torch.arange(h, dtype=torch.float32, device=images.device)
+    cols = torch.arange(w, dtype=torch.float32, device=images.device)
+    in_box = (((rows >= y0) & (rows < y1))[:, None]
+              & ((cols >= x0) & (cols < x1))[None, :])
+    blend = torch.where(cut > 0, images, a * images + b * rolled)
+    mixed = torch.where(in_box[None, :, :, None], rolled, blend)
+    soft = a * labels + b * roll_rows(labels)
+    return mixed.to(images.dtype), soft
 
 
 def cutmix_or_mixup(rng: np.random.Generator, images: torch.Tensor,
@@ -90,5 +134,6 @@ def cutmix_or_mixup(rng: np.random.Generator, images: torch.Tensor,
     """One batch-level RandomChoice between CutMix and MixUp: (B, H, W, C)
     images and (B, classes) one-hot labels -> mixed images, soft labels."""
     _, h, w, _ = images.shape
-    return apply_cutmix_or_mixup(images, labels_onehot, sample_cutmix_or_mixup(
-        rng, h, w, mixup_alpha, cutmix_alpha))
+    draw = sample_cutmix_or_mixup(rng, h, w, mixup_alpha, cutmix_alpha)
+    return apply_mix_params(images, labels_onehot, torch.from_numpy(
+        mix_params(draw, h, w)).to(images.device))

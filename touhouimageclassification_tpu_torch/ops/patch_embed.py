@@ -34,6 +34,9 @@ from ._build import load_library
 
 launches = 0
 route_launches = {"wgmma": 0, "simt": 0}
+# every launch counter of this module, which a replayed CUDA graph credits
+# (``train/step_graph.py``)
+LAUNCH_COUNTERS = ("launches", "route_launches")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}

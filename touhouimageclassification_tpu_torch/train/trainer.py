@@ -26,6 +26,24 @@ As in the JAX package:
 - frozen parameters (``param_filter``, or ``full_finetune=False``) still get
   gradients, which count in ``grad_norm``, but no update and no decay.
 
+On a CUDA device in one process, :meth:`Trainer.train_step` replays the
+step's device half, from the augmentation through the gradient norm and the
+stacked metrics, as one CUDA graph (``train/step_graph.py``), so the host
+issues one launch where the eager step issues thousands. A batch shape's
+first step runs eagerly and warms it; its second captures the graph, into
+one memory pool that every shape of the trainer shares, and every later
+step of that shape replays it. The numpy draws stay on the host: the
+augmentation's and the task's generators are the graph's own, re-seeded
+before each replay, the mixing draw is a device vector
+(:func:`~..ops.mixup.apply_mix_params`), and dropout re-seeds the default
+generator, so a replay computes what the eager step computes. The update
+stays eager, after the fetch: the NaN guard, the schedule and AdamW's host
+counters are untouched. A shape whose capture raises (a forward that waits
+for the host) runs eagerly for the trainer's lifetime, logged once.
+``graph_captures``, ``graph_replays`` and ``graph_fallbacks`` count what
+happened. :meth:`Trainer.train_steps` with k > 1 steps and a run of several
+processes (their collectives) stay eager.
+
 Unlike the JAX package the state is updated in place: a :class:`TrainState`
 owns the model, whose parameters are the training parameters, and the
 optimizer. Batches come from :func:`..data.image_loader` (the numpy
@@ -82,25 +100,34 @@ from ..config import TrainConfig, get_image_size
 from ..device import resolve_device
 from ..models import create_model, member_vit_config
 from ..ops.augment import build_augment_fn, build_eval_fn
-from ..ops.mixup import cutmix_or_mixup
+from ..ops import mixup
 from ..parallel import collectives, sharding
 from ..parallel.dist import world
 from ..parallel.mesh import create_mesh, process_input_view
 from ..utils.logging import get_logger
-from ..utils.profiling import span, trace
-from . import losses
+from ..utils.profiling import collecting, device_span, span, trace
+from . import losses, step_graph
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, global_norm
+
+
+def _stack_scalars(metrics: dict[str, torch.Tensor]
+                   ) -> tuple[list[str], torch.Tensor | None]:
+    """The keys of the 0-d metrics and their values stacked in f32 on the
+    device (None without any); other entries are skipped."""
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v) and v.dim() == 0]
+    if not keys:
+        return keys, None
+    return keys, torch.stack([metrics[k].float() for k in keys])
 
 
 def _fetch_scalars(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
     """Every 0-d metric in one device -> host copy (stacked on the device);
     other entries are skipped."""
-    keys = [k for k, v in metrics.items() if torch.is_tensor(v) and v.dim() == 0]
-    if not keys:
+    keys, vec = _stack_scalars(metrics)
+    if vec is None:
         return {}
-    vec = torch.stack([metrics[k].float() for k in keys]).cpu()
-    return dict(zip(keys, vec.tolist()))
+    return dict(zip(keys, vec.cpu().tolist()))
 
 
 def _groups(batches, k: int):
@@ -225,6 +252,13 @@ class Trainer:
                        for name, _ in self.model.named_parameters()}
         self._released = sharding.release_unowned(
             self.model, self.mesh.num_expert, self.mesh.expert_index)
+        # the step's CUDA graphs by batch shape (None: the shape runs
+        # eagerly), the shapes that ran their warm-up step, the graphs' pool
+        self._graphable = step_graph.engages(self.device, world()[1])
+        self._graphs: dict[tuple, step_graph.StepGraph | None] = {}
+        self._warm: set[tuple] = set()
+        self._graph_pool = None
+        self.graph_captures = self.graph_replays = self.graph_fallbacks = 0
 
     # ------------------------------------------------------------------
     # state
@@ -296,22 +330,38 @@ class Trainer:
                       bytes=sum(t.nbytes for t in staged.values()))
         return staged
 
-    def _inputs(self, state: TrainState, batch: dict[str, torch.Tensor]):
-        """Augmented, normalised, mixed images and soft labels for a step,
-        and the seeds of its dropout and of the task's forward generator."""
+    def _draws(self, state: TrainState):
+        """The step's host draws, keyed by ``(cfg.seed, state.step)``: the
+        augmentation's seed, the CutMix/MixUp draw as its
+        :func:`~..ops.mixup.mix_params` vector on the device (None without
+        mixing), the dropout seed and the seed of the task's forward
+        generator."""
         cfg = self.cfg
         rng = np.random.default_rng([cfg.seed, state.step])
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(rng.integers(2 ** 63)))
+        aug_seed = int(rng.integers(2 ** 63))
+        mix = None
+        if cfg.mix.enable_mixup:
+            draw = mixup.sample_cutmix_or_mixup(rng, *self.out_size,
+                                                cfg.mix.mixup_alpha,
+                                                cfg.mix.cutmix_alpha)
+            mix = torch.from_numpy(mixup.mix_params(draw, *self.out_size))
+            if self.device.type == "cuda":
+                mix = mix.pin_memory().to(self.device, non_blocking=True)
+        return (aug_seed, mix, int(rng.integers(2 ** 63)),
+                int(rng.integers(2 ** 63)))
+
+    def _inputs(self, batch: dict[str, torch.Tensor], gen: torch.Generator,
+                mix: torch.Tensor | None):
+        """Augmented (drawn from ``gen``), normalised, mixed images and soft
+        labels for a step. ``mix`` is the step's CutMix/MixUp draw as its
+        :func:`~..ops.mixup.mix_params` vector on the device; None: no
+        mixing."""
         images = self.augment_fn(gen, batch["image"].float() / 255.0)
         labels = nn.functional.one_hot(batch["label"].long(),
                                        self.num_classes).float()
-        if cfg.mix.enable_mixup:
-            images, labels = cutmix_or_mixup(rng, images, labels,
-                                             cfg.mix.mixup_alpha,
-                                             cfg.mix.cutmix_alpha)
-        return (images, labels, int(rng.integers(2 ** 63)),
-                int(rng.integers(2 ** 63)))
+        if mix is None:
+            return images, labels
+        return mixup.apply_mix_params(images, labels, mix)
 
     def _buffers(self, model: nn.Module):
         """The model's floating buffers and, under the NaN guard, one flat
@@ -321,54 +371,159 @@ class Trainer:
                  if buffers and self.cfg.nan_guard else None)
         return buffers, saved
 
+    @contextlib.contextmanager
+    def _dropout_seeded(self, seed: int):
+        """For a model with dropout, the default generators seeded with
+        ``seed`` inside the block and put back after it."""
+        devices = [self.device.index] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices, enabled=self._dropout):
+            if self._dropout:
+                torch.manual_seed(seed)
+            yield
+
+    def _device_step(self, model: nn.Module, batch: dict[str, torch.Tensor],
+                     gen: torch.Generator, mix,
+                     task_gen: torch.Generator, phase: Callable):
+        """The device half of a step: inputs, forward and loss, backward and
+        the gradient norm, each inside ``phase(name)``. Returns the loss,
+        the task's scalars and the gradient norm, and leaves the gradients
+        in ``.grad`` (averaged over the data group)."""
+        with collectives.use_mesh(self.mesh):
+            with phase("trainer.inputs"):
+                images, labels = self._inputs(batch, gen, mix)
+            with phase("trainer.forward"):
+                outputs = self.task.forward(model, images, batch, True,
+                                            task_gen)
+                loss, aux = self.task.loss(outputs, labels)
+            with phase("trainer.backward"):
+                loss.backward()
+            with phase("trainer.norm"):
+                grads, sharded = self._reduced_gradients(model)
+                grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
+        return loss.detach(), aux, grad_norm
+
     def _loss_and_grads(self, state: TrainState,
                         batch: dict[str, torch.Tensor]):
-        """The forward and backward of a step: its loss, the task's scalars
-        and the gradient norm, the gradients left in ``.grad`` (averaged
-        over the data group)."""
-        model = state.model
-        devices = [self.device.index] if self.device.type == "cuda" else []
-        dev = self.device
-        with collectives.use_mesh(self.mesh):
-            with span("trainer.inputs", device=dev):
-                images, labels, drop_seed, task_seed = self._inputs(state,
-                                                                    batch)
-            task_gen = torch.Generator(device=dev).manual_seed(task_seed)
-            with torch.random.fork_rng(devices=devices,
-                                       enabled=self._dropout):
-                if self._dropout:
-                    torch.manual_seed(drop_seed)
-                with span("trainer.forward", device=dev):
-                    outputs = self.task.forward(model, images, batch, True,
-                                                task_gen)
-                    loss, aux = self.task.loss(outputs, labels)
-                with span("trainer.backward", device=dev):
-                    loss.backward()
-        with span("trainer.norm", device=dev):
-            grads, sharded = self._reduced_gradients(model)
-            grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
-        return loss.detach(), aux, grad_norm
+        """The eager device half of a step (:meth:`_device_step`), its
+        generators seeded from the step's draws and its phases timed by
+        spans."""
+        aug_seed, mix, drop_seed, task_seed = self._draws(state)
+        gen, task_gen = (torch.Generator(device=self.device).manual_seed(s)
+                         for s in (aug_seed, task_seed))
+        with self._dropout_seeded(drop_seed):
+            return self._device_step(
+                state.model, batch, gen, mix, task_gen,
+                lambda name: span(name, device=self.device))
+
+    def _step_graph(self, state: TrainState, batch: dict[str, torch.Tensor]
+                    ) -> step_graph.StepGraph | None:
+        """The captured step of this batch shape: None at the shape's first
+        step, which warms it, and for a shape whose capture raised;
+        captured at its second step."""
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
+        if key not in self._warm:
+            self._warm.add(key)
+            return None
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(state, batch)
+        return self._graphs[key]
+
+    def _capture(self, state: TrainState, batch: dict[str, torch.Tensor]
+                 ) -> step_graph.StepGraph | None:
+        """Capture the device half of a step on ``batch``'s shapes into the
+        trainer's graph pool; on failure count it, log it and return None."""
+        model, dev = state.model, self.device
+        static = {k: v.clone() for k, v in batch.items()}
+        mix = torch.zeros(7, device=dev) if self.cfg.mix.enable_mixup else None
+        gens = (torch.Generator(device=dev), torch.Generator(device=dev))
+        phases = step_graph.PhaseEvents()
+
+        def body():
+            loss, aux, grad_norm = self._device_step(
+                model, static, gens[0], mix, gens[1], phases.phase)
+            return _stack_scalars({"loss": loss, "grad_norm": grad_norm,
+                                   **aux})
+
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        model.zero_grad(set_to_none=True)
+        try:
+            graph, (keys, scalars), launches = step_graph.capture(
+                body, dev, self._graph_pool, gens)
+        except RuntimeError as exc:
+            model.zero_grad(set_to_none=True)
+            self.graph_fallbacks += 1
+            self.logger.warning(
+                "the train step on batch shapes %s does not capture as a CUDA "
+                "graph (%s); these shapes train eagerly",
+                {k: tuple(v.shape) for k, v in batch.items()}, exc)
+            return None
+        self.graph_captures += 1
+        return step_graph.StepGraph(
+            graph=graph, batch=static, mix=mix, generators=gens, keys=keys,
+            scalars=scalars,
+            grads=[p.grad for p in state.optimizer.params],
+            outputs=[p.grad for p in model.parameters() if p.grad is not None],
+            phases=phases, launches=launches)
+
+    def _replay(self, state: TrainState, graph: step_graph.StepGraph,
+                batch: dict[str, torch.Tensor]) -> dict[str, float]:
+        """The step on its captured graph: the batch and the step's draws
+        into the graph's inputs, the replay, the guard's fetch; the phases'
+        device times go to the record while the profiler collects."""
+        aug_seed, mix, drop_seed, task_seed = self._draws(state)
+        with span("trainer.graph", device=self.device, replayed=1):
+            for key, value in batch.items():
+                graph.batch[key].copy_(value, non_blocking=True)
+            if mix is not None:
+                graph.mix.copy_(mix)
+            for gen, seed in zip(graph.generators, (aug_seed, task_seed)):
+                gen.manual_seed(seed)
+            with self._dropout_seeded(drop_seed):
+                graph.replay()
+        self.graph_replays += 1
+        with span("trainer.fetch"):
+            values = graph.scalars.cpu().tolist()
+        if collecting():
+            for name, ms in graph.phases.read():
+                device_span(name, ms)
+        return dict(zip(graph.keys, values))
 
     def train_step(self, state: TrainState,
                    batch: dict[str, torch.Tensor]) -> dict[str, float]:
         """One step on a staged batch (this rank's rows of the global
         batch), NaN-guarded unless ``cfg.nan_guard`` is False; returns the
-        fetched metrics (``loss``, ``grad_norm``, the task's scalars)."""
-        model = state.model
+        fetched metrics (``loss``, ``grad_norm``, the task's scalars). On a
+        CUDA device in one process its device half replays a captured
+        graph (module docstring)."""
+        return self._train_step(state, batch, self._graphable)
+
+    def _train_step(self, state: TrainState, batch: dict[str, torch.Tensor],
+                    graphed: bool) -> dict[str, float]:
+        model, opt = state.model, state.optimizer
         with span("trainer.step", id=state.step, rows=len(batch["image"])):
-            model.zero_grad(set_to_none=True)
+            graph = self._step_graph(state, batch) if graphed else None
             buffers, saved = self._buffers(model)
-            loss, aux, grad_norm = self._loss_and_grads(state, batch)
-            with span("trainer.fetch"):
-                metrics = _fetch_scalars({"loss": loss, "grad_norm": grad_norm,
-                                          **aux})
+            if graph is None:
+                model.zero_grad(set_to_none=True)
+                loss, aux, grad_norm = self._loss_and_grads(state, batch)
+                with span("trainer.fetch"):
+                    metrics = _fetch_scalars({"loss": loss,
+                                              "grad_norm": grad_norm, **aux})
+                grads = [p.grad for p in opt.params]
+            else:
+                metrics = self._replay(state, graph, batch)
+                # the next replay rewrites the graph's gradients, which an
+                # accumulating optimizer keeps
+                grads = (graph.grads if opt.k == 1 else
+                         [None if g is None else g.clone()
+                          for g in graph.grads])
             self.host_syncs += 1
             finite = (np.isfinite(metrics["loss"])
                       and np.isfinite(metrics["grad_norm"]))
             if finite or not self.cfg.nan_guard:
                 with span("trainer.update", device=self.device):
-                    state.optimizer.update([p.grad
-                                            for p in state.optimizer.params])
+                    opt.update(grads)
             elif saved is not None:
                 with torch.no_grad():
                     for b, old in zip(buffers, saved.split(
@@ -441,7 +596,7 @@ class Trainer:
             opt.restore(marks[j])
             state.step = first_step + j + 1
             for i in range(j + 1, len(batches)):
-                again = self.train_step(state, batches[i])
+                again = self._train_step(state, batches[i], graphed=False)
                 values[i] = [again[k] for k in keys] + [1.0]
         means = np.mean(np.asarray(values, np.float64)[:, :-1], axis=0)
         return dict(zip(keys, means.tolist()))

@@ -17,7 +17,8 @@
   (``time.perf_counter_ns``) and counts. A span
   given a CUDA ``device`` also records a pair of timing events on that
   device's current stream, read without a synchronisation until
-  :func:`recorded`.
+  :func:`recorded`. :func:`device_span` records a phase that ran inside a
+  replayed CUDA graph: its device time, no host time.
 - The record is kept in memory, at most :data:`CAPACITY` entries (later
   ones are dropped and counted), and is read by :func:`recorded`, emptied
   by :func:`clear` and written beside the Chrome trace by :func:`trace`.
@@ -182,6 +183,29 @@ def span(name: str, *, id: int | None = None, parent=None,
     stream = (torch.cuda.current_stream(device)
               if device is not None and device.type == "cuda" else None)
     return _Span(entry, stream)
+
+
+def collecting() -> bool:
+    """Whether torch's profiler is collecting, so that spans record: the one
+    flag :func:`span` reads."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def device_span(name: str, device_ms: float, **counts) -> None:
+    """Record phase ``name`` that ran on the device with no host work of its
+    own (a phase inside a replayed CUDA graph, timed by the graph's events):
+    zero host milliseconds at the moment of the call, ``device_ms`` device
+    milliseconds, nested in the thread's open span. Only while the profiler
+    collects, as :func:`span`."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_stacks, "spans", None)
+    up = stack[-1] if stack else None
+    entry = _Entry(name, up.id if up is not None else next(_record.roots),
+                   up, counts)
+    entry.start_ns = entry.end_ns = time.perf_counter_ns()
+    entry.device_ms = device_ms
+    _record.add(entry)
 
 
 def recorded() -> list[dict]:
