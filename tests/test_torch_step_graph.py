@@ -12,7 +12,9 @@ On the card (marked ``cuda``; the module imports nothing of JAX, so
 ``python -m pytest --noconftest tests/test_torch_step_graph.py -m cuda``
 runs them there): ``nvit`` steps at batch 8 on the graph against eager
 steps, bit for bit, and so ResNet steps with each BatchNorm variant and
-ResMoE steps; K1 and K2 counted per replay; a non-finite batch skipped
+ResMoE steps, and V-MoE steps (their routing, experts and combine
+recorded into the graph and read after each profiled replay); K1 and K2
+counted per replay; a non-finite batch skipped
 under the graph; a second batch shape in the shared pool; a capture that
 raises.
 """
@@ -27,12 +29,13 @@ from touhouimageclassification_tpu_torch.config import PRESETS, ViTConfig
 from touhouimageclassification_tpu_torch.models import create_model
 from touhouimageclassification_tpu_torch.models.resnet import BN_VARIANTS
 from touhouimageclassification_tpu_torch.models.vit import ViT
+from touhouimageclassification_tpu_torch.models.vmoe import VMoE, VMoEConfig
 from touhouimageclassification_tpu_torch.ops import attention, patch_embed
 from touhouimageclassification_tpu_torch.ops.mixup import (
     apply_cutmix_or_mixup, apply_mix_params, mix_params)
 from touhouimageclassification_tpu_torch.train import step_graph
 from touhouimageclassification_tpu_torch.train import trainer as trainer_mod
-from touhouimageclassification_tpu_torch.train.tasks import MoETask
+from touhouimageclassification_tpu_torch.train.tasks import MoETask, VMoETask
 from touhouimageclassification_tpu_torch.train.trainer import (
     ClassificationTask, Trainer)
 from touhouimageclassification_tpu_torch.utils import profiling
@@ -397,6 +400,47 @@ def test_resmoe_steps_on_the_graph_equal_eager_steps(tmp_path):
     assert (trainer.graph_captures, trainer.graph_replays,
             trainer.graph_fallbacks) == (1, 8, 0)
     assert state.optimizer.count == 2
+    assert _same_steps(runs)
+
+
+@pytest.mark.cuda
+def test_vmoe_steps_on_the_graph_equal_eager_steps(tmp_path):
+    """The ``nvit`` step over a small V-MoE (8 experts, 4 held, top-2, two
+    routing groups; the router noise from the task's generator): replayed
+    steps equal eager ones bit for bit, and a profiled replay records the
+    MoE spans of its capture with their device times and counts."""
+    dev = _cuda()
+    cfg = VMoEConfig(vit=TINY, num_experts=8, group_images=2,
+                     num_expert_shards=2)
+    host = _batches(5)
+    runs = []
+    for graphed in (False, True):
+        tcfg = dataclasses.replace(PRESETS["nvit"], global_batch_size=4,
+                                   log_dir=str(tmp_path / str(graphed)))
+        model = VMoE(cfg, "bfloat16", dev, param_dtype="float32", seed=0)
+        trainer = Trainer(tcfg, model=model, task=VMoETask(), device=dev)
+        state = trainer.init_state()
+        trainer._graphable = graphed
+        metrics = [trainer.train_step(state, trainer.stage(b))
+                   for b in host[:-1]]
+        profiling.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            metrics.append(trainer.train_step(state, trainer.stage(host[-1])))
+        runs.append((metrics, _state(trainer)))
+        spans = profiling.recorded()
+        for name in ("moe.route", "moe.dispatch", "moe.experts",
+                     "moe.combine"):
+            timed = [s for s in spans if s["name"] == name]
+            # one MoE layer (layer 1 of 2), forward and backward
+            assert len(timed) == 2, (graphed, name)
+            assert all(s["device_ms"] > 0 for s in timed)
+        counts = [s["counts"] for s in spans if s["name"] == "moe.route"
+                  and "assignments" in s["counts"]]
+        assert [c["assignments"] for c in counts] == [2 * 2 * 2 * 17]
+        assert all(0 < c["kept_held"] <= c["assignments"] for c in counts)
+    assert (trainer.graph_captures, trainer.graph_replays,
+            trainer.graph_fallbacks) == (1, 4, 0)
     assert _same_steps(runs)
 
 

@@ -1,5 +1,6 @@
 """Model factory (counterpart of the JAX package's ``models/__init__.py``):
-ViT, ResNet, ResMoE and TreeViT.
+ViT, ResNet, ResMoE and TreeViT; and V-MoE, which the JAX package does not
+have (``models/vmoe.py``).
 """
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ from .resnet import (ResNet, resnet, resnet18, resnet34, resnet50, resnet101,
                      resnet152)
 from .treevit import TreeViT
 from .vit import ViT
+from .vmoe import VMoE, VMoEConfig
 
-__all__ = ["ViT", "ResNet", "MoEClassifier", "TreeViT", "resnet", "resnet18",
-           "resnet34", "resnet50", "resnet101", "resnet152", "create_model",
+__all__ = ["ViT", "ResNet", "MoEClassifier", "TreeViT", "VMoE", "VMoEConfig",
+           "resnet", "resnet18", "resnet34", "resnet50", "resnet101",
+           "resnet152", "create_model",
            "EXPORT_CONFIGS", "model_config_key", "config_from_dict",
            "member_vit_config", "input_size"]
 
@@ -45,7 +48,9 @@ def config_from_dict(config: type, fields: dict):
 def member_vit_config(cfg) -> ViTConfig | None:
     """The ViT config a mixture's members are built from (None for a ViT
     or ResNet config): ``expert_vit`` or ``expert_model_name``'s, or
-    ``vit`` or ViT-Base."""
+    ``vit`` or ViT-Base; V-MoE's ``vit``."""
+    if isinstance(cfg, VMoEConfig):
+        return cfg.vit
     if isinstance(cfg, MoEConfig):
         return cfg.expert_vit or vit_config(cfg.expert_model_name)
     if isinstance(cfg, TreeViTConfig):

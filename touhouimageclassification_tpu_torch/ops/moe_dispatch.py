@@ -25,6 +25,16 @@ Under data parallelism the capacity plan is the global batch's
 gathered, the global plan decides which assignments survive capacity, and
 each rank dispatches only its own samples' surviving assignments, on at
 most min(C, B) slots an expert.
+
+V-MoE routes single tokens (:func:`make_group_plan`): G routing groups of
+T tokens, K choices a token, placed choice-major (every token's first
+choice before any token's second, as V-MoE places them), E experts of
+which a rank holds a contiguous range. One plan serves all held experts:
+their slots are laid out expert-major, G x C slots an expert, so a single
+gather (:func:`dispatch_held`) feeds a batched product over the held
+experts, and the combine reads each assignment's slot back. Assignments to
+experts that the rank does not hold are planned (they take their place in
+the queues) and leave no slot.
 """
 from __future__ import annotations
 
@@ -125,3 +135,81 @@ def combine(plan: DispatchPlan, expert_outputs: torch.Tensor,
     return torch.zeros(batch, per_assign.shape[-1],
                        device=per_assign.device).index_add_(
         0, plan.flat_sample, per_assign * w[:, None])
+
+
+class GroupPlan(NamedTuple):
+    """The routing of G groups of T tokens, K choices a token, onto the
+    held experts (``E_h`` of them, C slots a group each, ``S = G * C``
+    slots an expert). Assignment ``a = (g * K + k) * T + t`` is choice
+    ``k`` of token ``t`` of group ``g``; a token's row is ``g * T + t``."""
+    expert: torch.Tensor       # (G, K, T) int64: expert of each assignment
+    position: torch.Tensor     # (G, K, T) int64: place in its expert's queue
+    kept: torch.Tensor         # (G, K, T) bool: within capacity
+    held: torch.Tensor         # (G, K, T) bool: on a held expert
+    assign_slot: torch.Tensor  # (G*K*T,) int64: slot, E_h*S if none
+    slot_assign: torch.Tensor  # (E_h*S,) int64: assignment, G*K*T if empty
+    slot_token: torch.Tensor   # (E_h, S) int64: token row, 0 if empty
+    counts: torch.Tensor       # (G, E) int64: assignments an expert got
+
+
+def make_group_plan(top_k_idx: torch.Tensor, num_experts: int,
+                    capacity: int, held: range) -> GroupPlan:
+    """(G, T, K) expert indices -> the choice-major plan of the held
+    experts ``held`` (a contiguous range). An expert takes the first
+    ``capacity`` assignments of a group in choice-major order; the rest
+    are dropped. Static shapes, no device -> host copy."""
+    g, t, k = top_k_idx.shape
+    dev = top_k_idx.device
+    flat_e = top_k_idx.transpose(1, 2).reshape(g, k * t).long()
+    # (G, E, KT) one-hot, counted along its last axis: a scan along the
+    # innermost axis, in int32 (an outer-axis int64 scan of the (G, KT, E)
+    # one-hot takes milliseconds at 25,216 assignments a group)
+    onehot = (flat_e[:, None, :] == torch.arange(
+        num_experts, device=dev)[None, :, None]).int()
+    before = onehot.cumsum(-1, dtype=torch.int32) - onehot
+    pos = before.gather(1, flat_e[:, None, :])[:, 0].long()
+    kept = pos < capacity
+    on_held = (flat_e >= held.start) & (flat_e < held.stop)
+    slots = len(held) * g * capacity
+    local = (flat_e - held.start).clamp(0, len(held) - 1)
+    group = torch.arange(g, device=dev)[:, None]
+    slot = (local * g + group) * capacity + pos.clamp(max=capacity - 1)
+    assign_slot = torch.where(kept & on_held, slot,
+                              torch.full_like(slot, slots)).reshape(-1)
+    n = g * k * t
+    # the last entry collects every assignment that takes no slot and is
+    # cut off: every other slot is written by exactly one assignment
+    slot_assign = torch.full((slots + 1,), n, dtype=torch.long, device=dev)
+    slot_assign.index_put_((assign_slot,), torch.arange(n, device=dev))
+    slot_assign = slot_assign[:slots]
+    token = (group * t + torch.arange(t, device=dev)).repeat(1, k).reshape(-1)
+    token = torch.cat([token, token.new_zeros(1)])
+    return GroupPlan(expert=flat_e.view(g, k, t), position=pos.view(g, k, t),
+                     kept=kept.view(g, k, t), held=on_held.view(g, k, t),
+                     assign_slot=assign_slot, slot_assign=slot_assign,
+                     slot_token=token[slot_assign].view(len(held), -1),
+                     counts=onehot.sum(-1, dtype=torch.long))
+
+
+def dispatch_held(plan: GroupPlan, x: torch.Tensor) -> torch.Tensor:
+    """Every held expert's inputs in one gather: x (G*T, D) token rows ->
+    (E_h, S, D), slot s of expert e the token in it (row 0 where the slot
+    is empty)."""
+    return x[plan.slot_token]
+
+
+def gather_assigned(plan: GroupPlan, slot_rows: torch.Tensor) -> torch.Tensor:
+    """(E_h, S, D) per-slot rows -> (G*K*T, D), each assignment's slot row
+    (zero for an assignment that takes no slot)."""
+    flat = slot_rows.reshape(-1, slot_rows.shape[-1])
+    return torch.cat([flat, flat.new_zeros(1, flat.shape[-1])])[
+        plan.assign_slot]
+
+
+def gather_slots(plan: GroupPlan, assign_rows: torch.Tensor) -> torch.Tensor:
+    """(G*K*T, D) per-assignment rows -> (E_h, S, D), each slot's
+    assignment row (zero in an empty slot): the transpose of
+    :func:`gather_assigned`, as a gather."""
+    d = assign_rows.shape[-1]
+    return torch.cat([assign_rows, assign_rows.new_zeros(1, d)])[
+        plan.slot_assign].view(*plan.slot_token.shape, d)

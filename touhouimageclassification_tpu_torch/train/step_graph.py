@@ -120,6 +120,7 @@ class StepGraph:
     outputs: list[torch.Tensor]               # every gradient, held
     phases: PhaseEvents
     launches: dict[tuple, int]
+    spans: Any = None                         # profiling.GraphSpans
 
     def replay(self) -> None:
         self.graph.replay()

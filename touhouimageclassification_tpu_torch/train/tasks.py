@@ -13,6 +13,10 @@
   real routing), then the whole tree, with capacity-dropped samples masked
   out of the loss.
 
+- :class:`VMoETask`: V-MoE's objective (``models/vmoe.py``), the mean
+  cross entropy plus the model's weighted auxiliary losses; the router's
+  training noise comes from the step's generator.
+
 Under data parallelism the telemetry is the global batch's: the routing
 counts and the kept share are summed over the data group.
 """
@@ -151,3 +155,21 @@ def _tree_combined_loss(outputs, soft_labels):
     kept_share = (w.mean() if data_group() is None else all_reduce_sum_(
         w.sum(), data_group()) / global_count(w.shape[0]))
     return sce, {"dropped_frac": 1.0 - kept_share}
+
+
+class VMoETask(ClassificationTask):
+    """Cross entropy plus V-MoE's importance and load losses, which the
+    model's forward returns beside the logits already weighted."""
+
+    def forward(self, model, images, batch, train, generator=None):
+        model.train(train)
+        return model(images, generator=generator if train else None)
+
+    def loss(self, outputs, soft_labels):
+        logits, aux = outputs
+        ce = losses.cross_entropy(logits, soft_labels)
+        return ce + aux, {"classification_loss": ce.detach(),
+                          "aux_loss": aux.detach()}
+
+    def logits(self, outputs):
+        return outputs[0]

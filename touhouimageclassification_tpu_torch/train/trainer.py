@@ -36,7 +36,11 @@ step of that shape replays it. The numpy draws stay on the host: the
 augmentation's and the task's generators are the graph's own, re-seeded
 before each replay, the mixing draw is a device vector
 (:func:`~..ops.mixup.apply_mix_params`), and dropout re-seeds the default
-generator, so a replay computes what the eager step computes. The update
+generator, so a replay computes what the eager step computes. The model's
+own device spans (V-MoE's routing, dispatch, experts and combine) are
+recorded into the graph at its capture (:func:`~..utils.profiling.graph_spans`)
+and, while the profiler collects, entered after each replay with their
+device times and counts. The update
 stays eager, after the fetch: the NaN guard, the schedule and AdamW's host
 counters are untouched. A shape whose capture raises (a forward that waits
 for the host) runs eagerly for the trainer's lifetime, logged once.
@@ -105,7 +109,8 @@ from ..parallel import collectives, sharding
 from ..parallel.dist import world
 from ..parallel.mesh import create_mesh, process_input_view
 from ..utils.logging import get_logger
-from ..utils.profiling import collecting, device_span, span, trace
+from ..utils.profiling import (collecting, device_span, graph_spans, span,
+                               trace)
 from . import losses, step_graph
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, global_norm
@@ -448,8 +453,9 @@ class Trainer:
             self._graph_pool = torch.cuda.graph_pool_handle()
         model.zero_grad(set_to_none=True)
         try:
-            graph, (keys, scalars), launches = step_graph.capture(
-                body, dev, self._graph_pool, gens)
+            with graph_spans() as spans:
+                graph, (keys, scalars), launches = step_graph.capture(
+                    body, dev, self._graph_pool, gens)
         except RuntimeError as exc:
             model.zero_grad(set_to_none=True)
             self.graph_fallbacks += 1
@@ -464,7 +470,7 @@ class Trainer:
             scalars=scalars,
             grads=[p.grad for p in state.optimizer.params],
             outputs=[p.grad for p in model.parameters() if p.grad is not None],
-            phases=phases, launches=launches)
+            phases=phases, launches=launches, spans=spans)
 
     def _replay(self, state: TrainState, graph: step_graph.StepGraph,
                 batch: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -487,6 +493,8 @@ class Trainer:
         if collecting():
             for name, ms in graph.phases.read():
                 device_span(name, ms)
+            for name, ms, counts in graph.spans.read():
+                device_span(name, ms, **counts)
         return dict(zip(graph.keys, values))
 
     def train_step(self, state: TrainState,

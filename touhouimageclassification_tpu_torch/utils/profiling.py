@@ -19,6 +19,15 @@
   device's current stream, read without a synchronisation until
   :func:`recorded`. :func:`device_span` records a phase that ran inside a
   replayed CUDA graph: its device time, no host time.
+- Counts may be 0-d device tensors, found inside a step without a
+  device -> host copy; :func:`recorded` reads them.
+- Inside :func:`graph_spans`, a span given a CUDA ``device`` that opens
+  while the current stream is captured into a CUDA graph (a forward or a
+  backward that the train step's graph records) is kept in the block's
+  :class:`GraphSpans`, whatever the profiler does: a pair of timing events
+  recorded into the graph as its nodes, and its counts, tensors the graph
+  rewrites at each replay. :meth:`GraphSpans.read` gives each one's device
+  time and counts of the last replay, for :func:`device_span`.
 - The record is kept in memory, at most :data:`CAPACITY` entries (later
   ones are dropped and counted), and is read by :func:`recorded`, emptied
   by :func:`clear` and written beside the Chrome trace by :func:`trace`.
@@ -105,6 +114,7 @@ _stacks = threading.local()
 class _NoSpan:
     """What :func:`span` returns while nothing is recorded."""
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -121,6 +131,7 @@ _OFF = _NoSpan()
 
 class _Span:
     __slots__ = ("_entry", "_range", "_stream")
+    recording = True
 
     def __init__(self, entry: _Entry, stream):
         self._entry, self._stream = entry, stream
@@ -158,14 +169,91 @@ class _Span:
         self._entry.counts.update(counts)
 
 
+class _GraphSpan:
+    """A span opened while a CUDA graph is captured (:class:`GraphSpans`)."""
+    __slots__ = ("_entry",)
+    recording = True
+
+    def __init__(self, entry: list):
+        self._entry = entry
+
+    def _record(self):
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        self._entry[1].append(event)
+
+    def __enter__(self):
+        self._record()
+        return self
+
+    def __exit__(self, *exc):
+        self._record()
+        return False
+
+    def set(self, **counts) -> None:
+        self._entry[2].update(counts)
+
+
+class GraphSpans:
+    """The spans opened while a CUDA graph was captured, in the order they
+    opened: each one's name, its pair of timing events (graph nodes) and
+    its counts."""
+
+    def __init__(self):
+        self.entries: list[list] = []   # [name, [start, end], counts]
+
+    def open(self, name: str, counts: dict) -> _GraphSpan:
+        entry = [name, [], dict(counts)]
+        self.entries.append(entry)
+        return _GraphSpan(entry)
+
+    def read(self) -> list[tuple[str, float, dict]]:
+        """(name, device ms, counts) of each span in the last replay, which
+        has finished; tensor counts read in one device -> host copy."""
+        tensors = [v for _, _, counts in self.entries
+                   for v in counts.values() if torch.is_tensor(v)]
+        values = iter(torch.stack([t.double() for t in tensors]).tolist()
+                      if tensors else [])
+        out = []
+        for name, events, counts in self.entries:
+            if len(events) != 2:
+                continue
+            read = {k: next(values) if torch.is_tensor(v) else v
+                    for k, v in counts.items()}
+            out.append((name, events[0].elapsed_time(events[1]), read))
+        return out
+
+
+_graph_record: GraphSpans | None = None
+
+
+@contextlib.contextmanager
+def graph_spans():
+    """Keep the device spans opened on a capturing stream inside the block
+    in the :class:`GraphSpans` it yields (any thread: a capture's backward
+    runs on autograd's device thread)."""
+    global _graph_record
+    before, _graph_record = _graph_record, GraphSpans()
+    try:
+        yield _graph_record
+    finally:
+        _graph_record = before
+
+
 def span(name: str, *, id: int | None = None, parent=None,
          device: torch.device | None = None, **counts):
     """A context manager marking phase ``name`` with ``counts``; its handle's
-    ``set(**counts)`` adds counts found inside. Nested in the thread's open
+    ``set(**counts)`` adds counts found inside, and its ``recording`` says
+    whether they are kept. Nested in the thread's open
     span, or under ``parent`` (the handle of a span of another thread); a
     root span takes ``id`` (default: the next number of the record), its
     descendants share it. With a CUDA ``device``, the span's device
-    milliseconds are timed on that device's current stream."""
+    milliseconds are timed on that device's current stream; inside
+    :func:`graph_spans` on a capturing stream, it goes to the graph's
+    spans instead."""
+    if (device is not None and _graph_record is not None
+            and torch.cuda.is_current_stream_capturing()):
+        return _graph_record.open(name, counts)
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     if isinstance(parent, _Span):
@@ -213,7 +301,7 @@ def recorded() -> list[dict]:
     ``name``, ``id``, ``parent`` (the index of its parent in this list, or
     None), ``thread``, ``start_ns``, ``end_ns``, ``host_ms``, ``device_ms``
     (None for a span without a CUDA device; waits for the device) and
-    ``counts``."""
+    ``counts`` (tensor counts read as numbers)."""
     with _record.lock:
         entries = [e for e in _record.entries if e.end_ns is not None]
     for e in entries:
@@ -221,6 +309,10 @@ def recorded() -> list[dict]:
             start, end = e.events
             end.synchronize()
             e.device_ms, e.events = start.elapsed_time(end), None
+    for e in entries:
+        for k, v in e.counts.items():
+            if torch.is_tensor(v):
+                e.counts[k] = v.item()
     index = {id(e): i for i, e in enumerate(entries)}
     return [{"name": e.name, "id": e.id,
              "parent": None if e.parent is None else index.get(id(e.parent)),
