@@ -45,6 +45,10 @@ fatal on failure:
    patch embedding; then ``packed_attention`` (K3's op) once under
    autograd, and K1, K2 and K5 each launched from a fresh thread (as
    autograd's worker launches K2), bit-equal to the main thread's launch;
+   then the AdamW update (U1) at ViT-L's and V-MoE's parameter lists: one
+   launch a step over the whole list, p, m and v within 2 ulp of torch's
+   foreach AdamW on the same inputs, timed beside torch's foreach and fused
+   steps and its bytes bound;
 6. run ``infer.serve.main`` on a 120-class fixture ImageFolder: ``--full``
    without and with the canvas cache (which resizes on the device), then one
    single image; check the CSVs and that every forward launched K1 once per
@@ -57,8 +61,8 @@ fatal on failure:
 8. five ``nvit`` train steps (full augmentation, CutMix/MixUp, AdamW, bf16
    over f32 params, NaN guard) through the port's ``Trainer`` on batches of
    the fixture's 256x256 canvases from ``HostImageLoader``: finite, unskipped
-   steps with K1 and K2 launched once per layer each, then ``evaluate`` on
-   the val split;
+   steps with K1 and K2 launched once per layer each and U1 once a step,
+   then ``evaluate`` on the val split;
 9. one step 'xla' (plain attention) and one 'flash' + 'pallas' against
    'fused' (K1 + K2) from the same weights and batch: the loss, and every
    parameter's gradient (an SGD step with lr 1 moves each parameter by its
@@ -71,7 +75,7 @@ fatal on failure:
     preset, one epoch through ``HostImageLoader``, from a synthetic local
     HF snapshot of the random weights) with K1 and K2 launched once per
     layer per step, both on the ``wgmma`` route (every bf16 model path
-    below counts them so), its checkpoint restored, ``--test``,
+    below counts them so), and U1 once a step, its checkpoint restored, ``--test``,
     ``--transform`` to a serving export and the serve CLI on that export,
     whose judge CSV must equal the one of a ``Predictor`` on the restored
     model; a profiled ``Trainer.fit``; then exact resume from the seeded
@@ -178,7 +182,8 @@ fatal on failure:
     then each variant's img/s, peak memory, moved statistics and skipped
     steps; (c) 8 ``nvit`` steps at batch 8 as two ``train_steps`` calls of
     4 against 8 ``train_step`` calls: parameters and AdamW state bit for
-    bit, the calls' metrics the steps' means, one host sync a call (the
+    bit, U1 once a step, the calls' metrics the steps' means, one host
+    sync a call (the
     trainer's count and torch's sync debug mode), a NaN batch at position 1
     and 3 of a call skipped as a single step skips it; (d)
     ``Predictor.warmup`` on phase 11's ViT-L export: K1 24 a bucket, then
@@ -262,6 +267,12 @@ REL_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 # (each input read once, each output written once) over the memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# AdamW's update (U1) moves 28 bytes an f32 parameter: p, g, m and v read,
+# p, m and v written.
+ADAMW_BYTES = 28
+# U1's launches by the train paths that check them (one an update): the
+# nvit train steps, the ntrain fit and the k = 4 calls
+U1_LAUNCHES: dict[str, int] = {}
 # The attention kernels' shape sweep in bf16 (B 1, two heads): N from one
 # token to ViT at 384^2 (577), through a 16-row chunk, ragged edges, ViT-L's
 # 197 and the wgmma route's last N (256); every head dim the kernels take. At
@@ -1180,6 +1191,130 @@ def phase_fresh_thread(torch, attn, pe) -> None:
           f"thread's ({card_line()})")
 
 
+def adamw_param_sets(torch, dev):
+    """The parameter lists of the train cells' updates, f32 on the card, as
+    (name, build function): ViT-L/16 (the nvit cells, 303.4 M) and one card's
+    V-MoE-L/16 (16 of 32 experts held; 1.815 B)."""
+    from touhouimageclassification_tpu_torch.config import vit_config
+    from touhouimageclassification_tpu_torch.models.vit import ViT
+    from touhouimageclassification_tpu_torch.models.vmoe import VMoE, VMoEConfig
+
+    vit = vit_config("vit-large", num_classes=NUM_CLASSES)
+    return [("vit_l", lambda: ViT(vit, "float32", dev, param_dtype="float32")),
+            ("vmoe", lambda: VMoE(VMoEConfig(vit=vit, num_expert_shards=2),
+                                  "float32", dev, param_dtype="float32"))]
+
+
+def max_ulps(torch, got, want, scale) -> float:
+    """Largest |got - want| in ulps of ``scale``'s magnitude."""
+    scale = scale.abs()
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+    return ((got - want).abs() / ulp).max().item()
+
+
+def foreach_reference(torch, params, hyper, limit: int = 1 << 28):
+    """``torch.optim.AdamW``'s foreach route (the port's update before U1)
+    stepped once on copies of ``params``, their gradients shared, a slice of
+    the list of at most ``limit`` elements at a time so that its
+    temporaries stay small; returns (copy, its state) in the list's order."""
+    slices, size = [[]], 0
+    for p in params:
+        if slices[-1] and size + p.numel() > limit:
+            slices.append([])
+            size = 0
+        slices[-1].append(p)
+        size += p.numel()
+    out = []
+    for part in slices:
+        copies = [p.clone() for p in part]
+        for c, p in zip(copies, part):
+            c.grad = p.grad
+        ref = torch.optim.AdamW(copies, foreach=True, **hyper)
+        ref.step()
+        out += [(c, ref.state[c]) for c in copies]
+        del ref
+    return out
+
+
+def phase_adamw(torch, adamw, lib) -> dict:
+    """U1, the AdamW kernel (``csrc/adamw.cu``), at ViT-L's and V-MoE's
+    parameter lists with the nvit preset's lr 1e-5 and decay 0.01: one
+    launch a step over the whole list; after a step from the same state p,
+    m and v within 2 ulp of ``torch.optim.AdamW``'s foreach route
+    (:func:`foreach_reference`); ``ms`` one step between events from an
+    idle card, the gradients on ``.grad`` as the port's ``Optimizer`` sets
+    them (its host work before the launch included, as the trainer's update
+    span times it), ``device_ms`` the kernel alone (20 launches of the kept
+    table behind a spin), ``plain_ms`` the foreach route's step and
+    ``library_ms`` ``torch.optim.AdamW(fused=True)``'s (the yardstick,
+    which the port never calls), each between events from an idle card;
+    the bound is 28 bytes an element (f32 p, g, m and v read, p, m and v
+    written) at 3.35 TB/s."""
+    dev = torch.device("cuda", 0)
+    hyper = dict(lr=1e-5, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    out = {}
+    for name, build in adamw_param_sets(torch, dev):
+        params = [p.detach() for p in build().parameters()]
+        numel = sum(p.numel() for p in params)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        for p in params:
+            p.grad = 1e-3 * torch.randn(p.shape, generator=gen, device=dev)
+        opt = adamw.AdamW(params, **hyper)
+        stats = {"params": numel}
+        refs = foreach_reference(torch, params, hyper)
+        before = [p.clone() for p in params]
+        launched = adamw.launches
+        opt.step()
+        if adamw.launches != launched + 1:
+            raise AssertionError(f"U1 at {name}: {adamw.launches - launched} "
+                                 "launches for one step")
+        gaps = [0.0, 0.0, 0.0]
+        for p, (c, r), p0 in zip(params, refs, before):
+            s, g = opt.state[p], p.grad
+            gaps = [max(gaps[0], max_ulps(torch, p, c,
+                                          torch.maximum(c.abs(), p0.abs()))),
+                    max(gaps[1], max_ulps(torch, s["exp_avg"], r["exp_avg"],
+                                          g)),
+                    max(gaps[2], max_ulps(torch, s["exp_avg_sq"],
+                                          r["exp_avg_sq"], g * g))]
+        if max(gaps) > 2:
+            raise AssertionError(f"U1 at {name}: p, m, v {gaps} ulp from "
+                                 "torch's foreach AdamW after one step")
+        stats["ulps_p_m_v"] = gaps
+        del refs, before
+        torch.cuda.empty_cache()
+        table, chunks, _ = opt._tables[(0, 0)][2:]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def kernel():
+            lib.tic_adamw(table.data_ptr(), len(table), chunks, 1 - 1e-7, 0.1,
+                          0.999, 1e-3, 0.5, 1e-8, -1e-5, stream)
+
+        reps = 10 if name == "vit_l" else 5
+        stats.update(ms=cuda_ms(opt.step, warmup=3, reps=reps),
+                     device_ms=device_ms(kernel, reps=reps))
+        plain = torch.optim.AdamW(params, foreach=True, **hyper)
+        stats["plain_ms"] = cuda_ms(plain.step, warmup=2, reps=reps)
+        del plain
+        torch.cuda.empty_cache()
+        library = torch.optim.AdamW(params, fused=True, **hyper)
+        stats["library_ms"] = cuda_ms(library.step, warmup=2, reps=reps)
+        del library, opt, params, table
+        torch.cuda.empty_cache()
+        stats["bound_ms"], stats["bound_by"] = bound(0, ADAMW_BYTES * numel,
+                                                     torch.float32)
+        print(f"U1 AdamW at {name} ({numel / 1e6:.1f} M f32 parameters): one "
+              f"step {stats['ms']:.3f} ms, kernel alone {stats['device_ms']:.3f} "
+              f"ms device; torch foreach {stats['plain_ms']:.3f}, torch fused "
+              f"{stats['library_ms']:.3f}; bound {stats['bound_ms']:.3f} ms "
+              f"({stats['bound_by']}), share of the kernel "
+              f"{stats['bound_ms'] / stats['device_ms']:.3f}, of the step "
+              f"{stats['bound_ms'] / stats['ms']:.3f}; p, m, v within "
+              f"{gaps} ulp of foreach")
+        out[name] = stats
+    return out
+
+
 def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
                 layers: int) -> int:
     """The serve CLI, three ways; returns the kernel launches it made."""
@@ -1338,11 +1473,12 @@ def train_model(create_model, state_dict, variant: str, dev):
 
 def phase_train(attn, create_model, Trainer, state_dict, data: str,
                 layers: int, dev, steps: int = 5):
-    """The nvit train step through the port's Trainer on loader batches;
-    returns the K1 and K2 launches of those steps."""
+    """The nvit train step through the port's Trainer on loader batches,
+    one U1 launch each; returns the K1 and K2 launches of those steps."""
     from touhouimageclassification_tpu_torch.data import (image_loader,
                                                          random_split,
                                                          scan_image_folder)
+    from touhouimageclassification_tpu_torch.ops import adamw
 
     cfg = nvit_config(data)
     index = scan_image_folder(data)
@@ -1358,13 +1494,14 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
     batches = iter(train)
     zero_counts(attn)
     for i in range(steps):
-        before = (attn.launches, attn.bwd_launches)
+        before = (attn.launches, attn.bwd_launches, adamw.launches)
         count = state.optimizer.count
         m = trainer.train_step(state, trainer.stage(next(batches)))
         made = (attn.launches - before[0], attn.bwd_launches - before[1])
+        updates = adamw.launches - before[2]
         print(f"nvit train step {i + 1}: loss {m['loss']:.6f}, grad_norm "
-              f"{m['grad_norm']:.6f}, K1/K2 launches {made}, lr "
-              f"{state.optimizer.lr:g}")
+              f"{m['grad_norm']:.6f}, K1/K2 launches {made}, U1 launches "
+              f"{updates}, lr {state.optimizer.lr:g}")
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
             raise AssertionError(f"step {i + 1}: non-finite loss or grad_norm")
         if state.optimizer.count != count + 1:
@@ -1372,6 +1509,9 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
         if made != (layers, layers):
             raise AssertionError(f"step {i + 1}: K1/K2 launches {made}, "
                                  f"expected {layers} each")
+        if updates != 1:
+            raise AssertionError(f"step {i + 1}: {updates} U1 launches")
+    check_updates("train", steps)
     launches = (attn.launches, attn.bwd_launches)
     if attn.route_launches != model_routes(*launches):
         raise AssertionError(f"train: K1/K2 launches by route "
@@ -1578,6 +1718,10 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
           f"{attn.route_launches}, {fit_secs:.2f} s")
     if launches != expect or attn.route_launches != model_routes(*launches):
         raise AssertionError("ntrain fit: K1/K2 launches or routes")
+    if trainer.state.optimizer.count != steps:
+        raise AssertionError(f"ntrain fit: {trainer.state.optimizer.count} "
+                             f"updates in {steps} steps")
+    check_updates("fit", steps)
     records = [r for r in fit_records("log", cfg.train_id) if "epoch" in r]
     if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
             "train_loss", "val_loss", "val_acc")):
@@ -2361,9 +2505,24 @@ def phase_tile_studies(torch, attn, study):
 
 
 def zero_counts(attn) -> None:
-    """Set K1's and K2's launch counts and routes to 0 before a path."""
-    attn.launches = attn.bwd_launches = 0
+    """Set K1's, K2's and U1's launch counts and K1's and K2's routes to 0
+    before a path."""
+    from touhouimageclassification_tpu_torch.ops import adamw
+
+    attn.launches = attn.bwd_launches = adamw.launches = 0
     zero_routes(attn)
+
+
+def check_updates(path: str, expect: int) -> None:
+    """U1's launches since :func:`zero_counts` must be ``expect``, one an
+    optimizer update; kept in ``U1_LAUNCHES[path]``."""
+    from touhouimageclassification_tpu_torch.ops import adamw
+
+    print(f"{path}: U1 launches {adamw.launches} (expected {expect})")
+    if adamw.launches != expect:
+        raise AssertionError(f"{path}: {adamw.launches} U1 launches for "
+                             f"{expect} updates")
+    U1_LAUNCHES[path] = adamw.launches
 
 
 def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
@@ -4151,6 +4310,7 @@ def phase_steps_per_call(torch, attn, create_model, Trainer, state_dict,
     grouped_s = time.perf_counter() - t0
     launches = read_counts(attn, "18(c) steps_per_call 4, 8 steps",
                            (SPC_STEPS * layers, SPC_STEPS * layers))
+    check_updates("steps_per_call", SPC_STEPS)
     got = snapshot(grouped)
     diff = worst(got, ref)
     # once warm: a fresh process's or trainer's first steps make one-time
@@ -4344,7 +4504,7 @@ def main() -> int:
     from touhouimageclassification_tpu_torch.config import vit_config
     from touhouimageclassification_tpu_torch.infer import serve
     from touhouimageclassification_tpu_torch.models import create_model
-    from touhouimageclassification_tpu_torch.ops import _build
+    from touhouimageclassification_tpu_torch.ops import _build, adamw
     from touhouimageclassification_tpu_torch.ops import attention as attn
     from touhouimageclassification_tpu_torch.ops import attention_study as study
     from touhouimageclassification_tpu_torch.ops import patch_embed as pe
@@ -4374,6 +4534,7 @@ def main() -> int:
              "K5": phase_patch_embed(torch, pe)}
     packed_launches = phase_packed_op(torch, attn)
     phase_fresh_thread(torch, attn, pe)
+    adamw_stats = phase_adamw(torch, adamw, _build.load_library())
 
     layers = 24
     build_dir = os.path.join(ROOT, "build")
@@ -4479,6 +4640,12 @@ def main() -> int:
         "replaces": ref + replaces, "launches": by_path[main_path],
         "launches_by_path": by_path, **stats[key]}
         for key, name, source, replaces, by_path, main_path in kernels]
+        + [{"name": "adamw", "route": "cuda", "source": csrc + "adamw.cu",
+            "device_routes": {"float32": "simt"},
+            "replaces": "none (optax.adamw, fused by XLA)",
+            "launches": U1_LAUNCHES["fit"],
+            "launches_by_path": U1_LAUNCHES, **adamw_stats["vit_l"],
+            "vmoe": adamw_stats["vmoe"]}]
         + study_kernels + tile_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,7 +133,7 @@ NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "parallel/dist.py", "parallel/mesh.py",
                "parallel/collectives.py", "analysis/aug.py",
                "utils/extract_ckpt.py", "infer/serve.py",
-               "ops/batchnorm.py")
+               "ops/batchnorm.py", "ops/adamw.py")
 
 
 def test_kernel_wrapper_has_no_fallback():

@@ -5,8 +5,10 @@ the JAX package's ``train/optim.py``).
 ``optax.MultiSteps(chain(clip_by_global_norm, adamw | sgd))`` with the
 schedule counting inner updates.
 
-- AdamW is ``torch.optim.AdamW`` with optax's defaults (b1 .9, b2 .999,
-  eps 1e-8) and decoupled decay on every parameter it is given; SGD is
+- AdamW is :class:`..ops.adamw.AdamW`, ``torch.optim.AdamW`` with optax's
+  defaults (b1 .9, b2 .999, eps 1e-8) and decoupled decay on every
+  parameter it is given, whose step on CUDA parameters is one hand-written
+  multi-tensor kernel launch (on the CPU, torch's own step); SGD is
   ``torch.optim.SGD`` with momentum (optax's trace) and no weight decay.
 - ``clip_by_global_norm`` when ``max_grad_norm > 0``, as optax computes it.
 - Gradient accumulation with ``optax.MultiSteps`` semantics: the running mean
@@ -18,8 +20,9 @@ replicated ones; the norms (the clip's and the trainer's) add the squares
 of the experts' over the expert group, so every rank sees the norm of the
 whole parameter set.
 
-The update is plain PyTorch: it was no Pallas kernel in the JAX package
-either. The NaN guard lives in the trainer. For a step whose guard is
+The JAX package's update was no Pallas kernel (XLA fuses optax's); the
+port's AdamW is a CUDA kernel for the card's bandwidth (``csrc/adamw.cu``).
+The NaN guard lives in the trainer. For a step whose guard is
 decided on the device (``Trainer.train_steps``), :meth:`Optimizer.hold`
 copies what an update changes in place and :meth:`Optimizer.keep_if`
 selects between it and the update with ``torch.where``;
@@ -34,6 +37,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..config import OptimizerConfig
+from ..ops.adamw import AdamW
 from ..parallel.collectives import all_reduce_sum_
 
 
@@ -103,14 +107,14 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
 
 def build_optimizer(cfg: OptimizerConfig,
                     params: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
-    """The inner update rule: ``optax.adamw`` as ``torch.optim.AdamW``
-    (decoupled decay on every parameter given), ``optax.sgd`` as
+    """The inner update rule: ``optax.adamw`` as the port's
+    :class:`~..ops.adamw.AdamW` (``torch.optim.AdamW``'s state and results;
+    decoupled decay on every parameter given), ``optax.sgd`` as
     ``torch.optim.SGD`` with momentum and no weight decay. The LR is set per
     update by :class:`Optimizer`."""
     if cfg.name == "adamw":
-        return torch.optim.AdamW(params, lr=cfg.learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
+        return AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                     eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.name == "sgd":
         return torch.optim.SGD(params, lr=cfg.learning_rate,
                                momentum=cfg.momentum)

@@ -42,7 +42,9 @@ recorded into the graph at its capture (:func:`~..utils.profiling.graph_spans`)
 and, while the profiler collects, entered after each replay with their
 device times and counts. The update
 stays eager, after the fetch: the NaN guard, the schedule and AdamW's host
-counters are untouched. A shape whose capture raises (a forward that waits
+counters are untouched, and on a CUDA device AdamW is one launch of the
+port's kernel (``ops/adamw.py``), whose span counts the elements it wrote
+and its launches. A shape whose capture raises (a forward that waits
 for the host) runs eagerly for the trainer's lifetime, logged once.
 ``graph_captures``, ``graph_replays`` and ``graph_fallbacks`` count what
 happened. :meth:`Trainer.train_steps` with k > 1 steps and a run of several
@@ -104,7 +106,7 @@ from ..config import TrainConfig, get_image_size
 from ..device import resolve_device
 from ..models import create_model, member_vit_config
 from ..ops.augment import build_augment_fn, build_eval_fn
-from ..ops import mixup
+from ..ops import adamw, mixup
 from ..parallel import collectives, sharding
 from ..parallel.dist import world
 from ..parallel.mesh import create_mesh, process_input_view
@@ -530,8 +532,7 @@ class Trainer:
             finite = (np.isfinite(metrics["loss"])
                       and np.isfinite(metrics["grad_norm"]))
             if finite or not self.cfg.nan_guard:
-                with span("trainer.update", device=self.device):
-                    opt.update(grads)
+                self._update(opt, grads)
             elif saved is not None:
                 with torch.no_grad():
                     for b, old in zip(buffers, saved.split(
@@ -540,6 +541,15 @@ class Trainer:
             model.zero_grad(set_to_none=True)
             state.step += 1
         return metrics
+
+    def _update(self, opt: Optimizer, grads: list) -> None:
+        """The optimizer's update in its span, with the parameter elements
+        AdamW wrote and the kernel launches it made."""
+        with span("trainer.update", device=self.device) as phase:
+            launched, written = adamw.launches, adamw.elements
+            opt.update(grads)
+            phase.set(elements=adamw.elements - written,
+                      launches=adamw.launches - launched)
 
     def train_steps(self, state: TrainState,
                     batches: list[dict[str, torch.Tensor]]
@@ -582,8 +592,7 @@ class Trainer:
                     live = (live & torch.isfinite(loss)
                             & torch.isfinite(grad_norm))
                     held = opt.hold()
-                with span("trainer.update", device=self.device):
-                    opt.update([p.grad for p in opt.params])
+                self._update(opt, [p.grad for p in opt.params])
                 if guard:
                     opt.keep_if(live, held)
                     if saved is not None:
