@@ -6,7 +6,8 @@ mix; the step stays eager on the CPU, in k-step calls and in a run of
 several processes; a shape's first step warms it and its second captures,
 once; a capture that raises falls back to eager once, for good; the launch
 counters take a capture's launches back and credit each replay with them;
-a replayed phase is recorded with its device time alone.
+a replayed phase is recorded with its device time alone; the step's four
+phases go to the graph's spans while it is captured.
 
 On the card (marked ``cuda``; the module imports nothing of JAX, so
 ``python -m pytest --noconftest tests/test_torch_step_graph.py -m cuda``
@@ -201,8 +202,8 @@ def test_a_capture_takes_its_launches_back_and_each_replay_credits_them(
     assert step_graph.launch_counts() == before
     graph = step_graph.StepGraph(
         graph=_StandInGraph(), batch={}, mix=None, generators=(), keys=[],
-        scalars=torch.zeros(2), grads=[], outputs=[],
-        phases=step_graph.PhaseEvents(), launches=launches)
+        scalars=torch.zeros(2), grads=[], outputs=[], launches=launches,
+        spans=profiling.GraphSpans())
     for _ in range(3):
         graph.replay()
     assert graph.graph.replays == 3
@@ -246,6 +247,40 @@ def test_a_replayed_phase_records_its_device_time_alone():
             for s in spans] == [("trainer.step", 11, None, spans[0]["host_ms"],
                                  None),
                                 ("trainer.forward", 11, 0, 0.0, 2.5)]
+
+
+class _StandInEvent:
+    """A CUDA timing event that records nothing."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def record(self, stream=None):
+        pass
+
+
+def test_the_steps_phases_are_the_graphs_spans_while_it_is_captured(
+        tmp_path, monkeypatch):
+    """The device half of a step run as the capture runs it, on a stream
+    that reports capturing inside ``graph_spans()``: its four phases are
+    kept there, in order, each with a pair of events and no counts, and
+    nothing reaches the record while the profiler collects."""
+    trainer, state = _trainer(tmp_path)
+    batch = trainer.stage(_batches(1)[0])
+    gens = (torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _StandInEvent)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.graph_spans() as spans:
+            trainer._device_step(state.model, batch, gens[0], None, gens[1])
+    assert profiling.recorded() == []
+    assert [(name, len(events), counts)
+            for name, events, counts in spans.entries] == [
+        ("trainer.inputs", 2, {}), ("trainer.forward", 2, {}),
+        ("trainer.backward", 2, {}), ("trainer.norm", 2, {})]
+    assert all(p.grad is not None for p in state.model.parameters())
 
 
 # ---------------------------------------------------------------------------

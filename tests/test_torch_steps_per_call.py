@@ -32,7 +32,8 @@ from test_torch_copies import port_config
 from test_torch_fit import KillAtBatch
 from touhouimageclassification_tpu.config import (AugmentConfig,
                                                   CheckpointConfig, MixConfig,
-                                                  OptimizerConfig, TrainConfig,
+                                                  OptimizerConfig,
+                                                  ResNetConfig, TrainConfig,
                                                   ViTConfig)
 from touhouimageclassification_tpu.data.folder import (
     random_split as jax_random_split, scan_image_folder as jax_scan)
@@ -44,6 +45,7 @@ from touhouimageclassification_tpu.train.trainer import Trainer as JaxTrainer
 from touhouimageclassification_tpu_torch.data import (image_loader,
                                                      random_split,
                                                      scan_image_folder)
+from touhouimageclassification_tpu_torch.models.resnet import ResNet
 from touhouimageclassification_tpu_torch.models.vit import ViT
 from touhouimageclassification_tpu_torch.train.trainer import Trainer
 from touhouimageclassification_tpu_torch.utils.convert import from_jax_params
@@ -52,6 +54,7 @@ torch.set_num_threads(1)
 
 TINY = ViTConfig(image_size=16, patch_size=8, hidden_size=16, num_layers=1,
                  num_heads=2, mlp_dim=32, num_classes=4)
+TINY_RESNET = ResNetConfig(depth=18, num_classes=4, image_size=16)
 K = 4
 
 OPTIMIZERS = {
@@ -92,9 +95,14 @@ def _batches(n, b=8, poison=None, size=16):
     return out
 
 
-def _port_trainer(cfg, variables=None, seed=0):
-    pcfg = port_config(TINY)
-    model = ViT(pcfg, "float32", "cpu", param_dtype="float32", seed=seed)
+def _port_trainer(cfg, variables=None, seed=0, family="vit"):
+    if family == "vit":
+        pcfg = port_config(TINY)
+        model = ViT(pcfg, "float32", "cpu", param_dtype="float32", seed=seed)
+    else:
+        pcfg = port_config(TINY_RESNET)
+        model = ResNet(pcfg, "float32", "cpu", param_dtype="float32",
+                       seed=seed)
     init = (None if variables is None
             else from_jax_params(jax.device_get(variables), pcfg))
     return Trainer(port_config(cfg), model=model, device="cpu",
@@ -102,10 +110,14 @@ def _port_trainer(cfg, variables=None, seed=0):
 
 
 def _state(trainer):
-    """Parameters, optimizer tensors and host counters of a trainer."""
+    """Parameters, floating buffers (a ResNet's BatchNorm running
+    statistics), optimizer tensors and host counters of a trainer."""
     opt = trainer.state.optimizer
     tensors = {f"param:{k}": v.detach().clone()
                for k, v in trainer.state.model.named_parameters()}
+    tensors.update({f"buffer:{k}": v.clone()
+                    for k, v in trainer.state.model.named_buffers()
+                    if v.is_floating_point()})
     names = {id(p): k for k, p in trainer.state.model.named_parameters()}
     for p, s in opt.inner.state.items():
         for key, v in s.items():
@@ -227,16 +239,19 @@ def test_nan_batch_inside_a_call(tmp_path, nan_guard, opt):
     assert grouped.state.optimizer.count == updates
 
 
-def test_skipped_step_moves_nothing_on_the_device(tmp_path):
+@pytest.mark.parametrize("family", ["vit", "resnet"])
+def test_skipped_step_moves_nothing_on_the_device(tmp_path, family):
     """A call of 2 whose last batch is poisoned: the first step commits,
-    the second leaves every parameter, moment and counter where the first
-    left them, and step still advances."""
+    the second leaves every parameter, moment, counter and (for the ResNet,
+    whose forward moves them in place) BatchNorm running statistic where
+    the first left them, and step still advances."""
     batches = _batches(2, poison=1)
-    cfg = _cfg(tmp_path, steps_per_call=2, optimizer=OPTIMIZERS["adamw"])
-    ref = _port_trainer(cfg)
+    cfg = _cfg(tmp_path, steps_per_call=2, optimizer=OPTIMIZERS["adamw"],
+               model_type="vit-base" if family == "vit" else "resnet18")
+    ref = _port_trainer(cfg, family=family)
     ref.init_state(4)
     ref.train_step(ref.state, ref.stage(batches[0]))
-    got = _port_trainer(cfg)
+    got = _port_trainer(cfg, family=family)
     got.init_state(4)
     m = got.train_steps(got.state, [got.stage(b) for b in batches])
     assert np.isnan(m["loss"])

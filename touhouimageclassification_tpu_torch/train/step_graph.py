@@ -6,8 +6,11 @@ place: the static batch that each staged batch is copied into, the step's
 CutMix/MixUp draw as a device vector (:func:`..ops.mixup.mix_params`), the
 augmentation's and the task's generators (registered with the graph and
 re-seeded before each replay, so that a replay draws what the eager step
-draws), the stacked 0-d metrics that the guard fetches, and the gradients
-that the eager update takes.
+draws), the stacked 0-d metrics that the guard fetches, the gradients that
+the eager update takes, and the device spans opened during the capture
+(:class:`~..utils.profiling.GraphSpans`: the trainer's phases and the
+model's own, each a pair of timing events recorded as graph nodes), which
+the trainer enters into the record after a profiled replay.
 
 The port's launch counters (``ops.attention``, ``ops.patch_embed``) count
 on the host when a kernel is launched. A kernel recorded into a graph does
@@ -24,6 +27,7 @@ from typing import Any, Callable
 import torch
 
 from ..ops import attention, patch_embed
+from ..utils.profiling import GraphSpans
 
 # the modules whose kernels a step launches, each naming its counters in
 # LAUNCH_COUNTERS: an int counts launches, a dict counts them by route
@@ -80,33 +84,6 @@ def captured_launches():
         add_launches(launches, -1)
 
 
-class PhaseEvents:
-    """Timing events recorded into a graph at its phases' boundaries, as
-    graph nodes (``external=True``), so that a replay times its phases on
-    the device. ``phase(name)`` marks the end of phase ``name`` after its
-    block; the first call also marks the start."""
-
-    def __init__(self):
-        self.marks: list[tuple[str | None, torch.cuda.Event]] = []
-
-    def _record(self, name: str | None) -> None:
-        event = torch.cuda.Event(enable_timing=True, external=True)
-        event.record()
-        self.marks.append((name, event))
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        if not self.marks:
-            self._record(None)
-        yield
-        self._record(name)
-
-    def read(self) -> list[tuple[str, float]]:
-        """(phase, device ms) of the last replay, which has finished."""
-        return [(name, start.elapsed_time(end)) for (_, start), (name, end)
-                in zip(self.marks, self.marks[1:])]
-
-
 @dataclasses.dataclass
 class StepGraph:
     """One captured step of one batch shape."""
@@ -118,9 +95,8 @@ class StepGraph:
     scalars: torch.Tensor
     grads: list[torch.Tensor | None]          # the optimizer's parameters'
     outputs: list[torch.Tensor]               # every gradient, held
-    phases: PhaseEvents
     launches: dict[tuple, int]
-    spans: Any = None                         # profiling.GraphSpans
+    spans: GraphSpans
 
     def replay(self) -> None:
         self.graph.replay()

@@ -36,11 +36,12 @@ step of that shape replays it. The numpy draws stay on the host: the
 augmentation's and the task's generators are the graph's own, re-seeded
 before each replay, the mixing draw is a device vector
 (:func:`~..ops.mixup.apply_mix_params`), and dropout re-seeds the default
-generator, so a replay computes what the eager step computes. The model's
-own device spans (V-MoE's routing, dispatch, experts and combine) are
+generator, so a replay computes what the eager step computes. The step's
+device spans, the trainer's four phases (inputs, forward, backward, norm)
+and the model's own (V-MoE's routing, dispatch, experts and combine), are
 recorded into the graph at its capture (:func:`~..utils.profiling.graph_spans`)
 and, while the profiler collects, entered after each replay with their
-device times and counts. The update
+device times and counts, as the eager step's spans would be. The update
 stays eager, after the fetch: the NaN guard, the schedule and AdamW's host
 counters are untouched, and on a CUDA device AdamW is one launch of the
 port's kernel (``ops/adamw.py``), whose span counts the elements it wrote
@@ -378,6 +379,20 @@ class Trainer:
                  if buffers and self.cfg.nan_guard else None)
         return buffers, saved
 
+    @staticmethod
+    def _restore_buffers(buffers: list[torch.Tensor], saved, live=None):
+        """Put the floating buffers back from :meth:`_buffers`' copy: all of
+        them, or, given the device flag ``live``, where it is False."""
+        if saved is None:
+            return
+        with torch.no_grad():
+            sizes = [b.numel() for b in buffers]
+            for b, old in zip(buffers, saved.split(sizes)):
+                if live is None:
+                    b.copy_(old.view_as(b))
+                else:
+                    torch.where(live, b, old.view_as(b), out=b)
+
     @contextlib.contextmanager
     def _dropout_seeded(self, seed: int):
         """For a model with dropout, the default generators seeded with
@@ -389,22 +404,23 @@ class Trainer:
             yield
 
     def _device_step(self, model: nn.Module, batch: dict[str, torch.Tensor],
-                     gen: torch.Generator, mix,
-                     task_gen: torch.Generator, phase: Callable):
+                     gen: torch.Generator, mix, task_gen: torch.Generator):
         """The device half of a step: inputs, forward and loss, backward and
-        the gradient norm, each inside ``phase(name)``. Returns the loss,
+        the gradient norm, each in its device span (inside a capture, the
+        graph's: :func:`~..utils.profiling.graph_spans`). Returns the loss,
         the task's scalars and the gradient norm, and leaves the gradients
         in ``.grad`` (averaged over the data group)."""
+        dev = self.device
         with collectives.use_mesh(self.mesh):
-            with phase("trainer.inputs"):
+            with span("trainer.inputs", device=dev):
                 images, labels = self._inputs(batch, gen, mix)
-            with phase("trainer.forward"):
+            with span("trainer.forward", device=dev):
                 outputs = self.task.forward(model, images, batch, True,
                                             task_gen)
                 loss, aux = self.task.loss(outputs, labels)
-            with phase("trainer.backward"):
+            with span("trainer.backward", device=dev):
                 loss.backward()
-            with phase("trainer.norm"):
+            with span("trainer.norm", device=dev):
                 grads, sharded = self._reduced_gradients(model)
                 grad_norm = global_norm(grads, sharded, self.mesh.expert_group)
         return loss.detach(), aux, grad_norm
@@ -412,15 +428,12 @@ class Trainer:
     def _loss_and_grads(self, state: TrainState,
                         batch: dict[str, torch.Tensor]):
         """The eager device half of a step (:meth:`_device_step`), its
-        generators seeded from the step's draws and its phases timed by
-        spans."""
+        generators seeded from the step's draws."""
         aug_seed, mix, drop_seed, task_seed = self._draws(state)
         gen, task_gen = (torch.Generator(device=self.device).manual_seed(s)
                          for s in (aug_seed, task_seed))
         with self._dropout_seeded(drop_seed):
-            return self._device_step(
-                state.model, batch, gen, mix, task_gen,
-                lambda name: span(name, device=self.device))
+            return self._device_step(state.model, batch, gen, mix, task_gen)
 
     def _step_graph(self, state: TrainState, batch: dict[str, torch.Tensor]
                     ) -> step_graph.StepGraph | None:
@@ -443,11 +456,10 @@ class Trainer:
         static = {k: v.clone() for k, v in batch.items()}
         mix = torch.zeros(7, device=dev) if self.cfg.mix.enable_mixup else None
         gens = (torch.Generator(device=dev), torch.Generator(device=dev))
-        phases = step_graph.PhaseEvents()
 
         def body():
             loss, aux, grad_norm = self._device_step(
-                model, static, gens[0], mix, gens[1], phases.phase)
+                model, static, gens[0], mix, gens[1])
             return _stack_scalars({"loss": loss, "grad_norm": grad_norm,
                                    **aux})
 
@@ -472,13 +484,13 @@ class Trainer:
             scalars=scalars,
             grads=[p.grad for p in state.optimizer.params],
             outputs=[p.grad for p in model.parameters() if p.grad is not None],
-            phases=phases, launches=launches, spans=spans)
+            launches=launches, spans=spans)
 
     def _replay(self, state: TrainState, graph: step_graph.StepGraph,
                 batch: dict[str, torch.Tensor]) -> dict[str, float]:
         """The step on its captured graph: the batch and the step's draws
-        into the graph's inputs, the replay, the guard's fetch; the phases'
-        device times go to the record while the profiler collects."""
+        into the graph's inputs, the replay, the guard's fetch; the graph's
+        spans go to the record while the profiler collects."""
         aug_seed, mix, drop_seed, task_seed = self._draws(state)
         with span("trainer.graph", device=self.device, replayed=1):
             for key, value in batch.items():
@@ -493,8 +505,6 @@ class Trainer:
         with span("trainer.fetch"):
             values = graph.scalars.cpu().tolist()
         if collecting():
-            for name, ms in graph.phases.read():
-                device_span(name, ms)
             for name, ms, counts in graph.spans.read():
                 device_span(name, ms, **counts)
         return dict(zip(graph.keys, values))
@@ -533,11 +543,8 @@ class Trainer:
                       and np.isfinite(metrics["grad_norm"]))
             if finite or not self.cfg.nan_guard:
                 self._update(opt, grads)
-            elif saved is not None:
-                with torch.no_grad():
-                    for b, old in zip(buffers, saved.split(
-                            [b.numel() for b in buffers])):
-                        b.copy_(old.view_as(b))
+            else:
+                self._restore_buffers(buffers, saved)
             model.zero_grad(set_to_none=True)
             state.step += 1
         return metrics
@@ -595,11 +602,7 @@ class Trainer:
                 self._update(opt, [p.grad for p in opt.params])
                 if guard:
                     opt.keep_if(live, held)
-                    if saved is not None:
-                        with torch.no_grad():
-                            for b, old in zip(buffers, saved.split(
-                                    [b.numel() for b in buffers])):
-                                torch.where(live, b, old.view_as(b), out=b)
+                    self._restore_buffers(buffers, saved, live)
                 model.zero_grad(set_to_none=True)
                 state.step += 1
                 rows.append(torch.stack([metrics[k].float() for k in keys]

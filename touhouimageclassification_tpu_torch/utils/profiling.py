@@ -22,12 +22,13 @@
 - Counts may be 0-d device tensors, found inside a step without a
   device -> host copy; :func:`recorded` reads them.
 - Inside :func:`graph_spans`, a span given a CUDA ``device`` that opens
-  while the current stream is captured into a CUDA graph (a forward or a
-  backward that the train step's graph records) is kept in the block's
-  :class:`GraphSpans`, whatever the profiler does: a pair of timing events
-  recorded into the graph as its nodes, and its counts, tensors the graph
-  rewrites at each replay. :meth:`GraphSpans.read` gives each one's device
-  time and counts of the last replay, for :func:`device_span`.
+  while the current stream is captured into a CUDA graph (a phase of the
+  train step, or a model's span in its forward or backward, that the step's
+  graph records) is kept in the block's :class:`GraphSpans`, whatever the
+  profiler does: a pair of timing events recorded into the graph as its
+  nodes, and its counts, tensors the graph rewrites at each replay.
+  :meth:`GraphSpans.read` gives each one's device time and counts of the
+  last replay, for :func:`device_span`.
 - The record is kept in memory, at most :data:`CAPACITY` entries (later
   ones are dropped and counted), and is read by :func:`recorded`, emptied
   by :func:`clear` and written beside the Chrome trace by :func:`trace`.
@@ -231,7 +232,9 @@ _graph_record: GraphSpans | None = None
 def graph_spans():
     """Keep the device spans opened on a capturing stream inside the block
     in the :class:`GraphSpans` it yields (any thread: a capture's backward
-    runs on autograd's device thread)."""
+    runs on autograd's device thread). The train step's capture opens it:
+    the trainer's four phases and the model's own spans (V-MoE's ``moe.*``)
+    are kept here."""
     global _graph_record
     before, _graph_record = _graph_record, GraphSpans()
     try:
