@@ -48,7 +48,14 @@ fatal on failure:
    then the AdamW update (U1) at ViT-L's and V-MoE's parameter lists: one
    launch a step over the whole list, p, m and v within 2 ulp of torch's
    foreach AdamW on the same inputs, timed beside torch's foreach and fused
-   steps and its bytes bound;
+   steps and its bytes bound; then the LayerNorm pair (N1) at ViT-L's b256
+   and b8 rows and ViT-B's bucket-64 rows in bf16, and at V-MoE-L's b128
+   rows with a bf16 x and an f32 y and dy (``ln2``): y, dx and the scale's
+   and bias's gradients against the plain version, one forward and one
+   backward launch, and the device times of the forward, the backward and
+   the pair beside the plain version (``F.layer_norm`` on f32 between two
+   casts, under autograd, which is also the library call) and the bytes
+   bound;
 6. run ``infer.serve.main`` on a 120-class fixture ImageFolder: ``--full``
    without and with the canvas cache (which resizes on the device), then one
    single image; check the CSVs and that every forward launched K1 once per
@@ -61,8 +68,8 @@ fatal on failure:
 8. five ``nvit`` train steps (full augmentation, CutMix/MixUp, AdamW, bf16
    over f32 params, NaN guard) through the port's ``Trainer`` on batches of
    the fixture's 256x256 canvases from ``HostImageLoader``: finite, unskipped
-   steps with K1 and K2 launched once per layer each and U1 once a step,
-   then ``evaluate`` on the val split;
+   steps with K1 and K2 launched once per layer each, U1 once a step and N1
+   49 times a step forward and backward, then ``evaluate`` on the val split;
 9. one step 'xla' (plain attention) and one 'flash' + 'pallas' against
    'fused' (K1 + K2) from the same weights and batch: the loss, and every
    parameter's gradient (an SGD step with lr 1 moves each parameter by its
@@ -75,7 +82,8 @@ fatal on failure:
     preset, one epoch through ``HostImageLoader``, from a synthetic local
     HF snapshot of the random weights) with K1 and K2 launched once per
     layer per step, both on the ``wgmma`` route (every bf16 model path
-    below counts them so), and U1 once a step, its checkpoint restored, ``--test``,
+    below counts them so), U1 once a step and N1 49 times a forward and a
+    backward, its checkpoint restored, ``--test``,
     ``--transform`` to a serving export and the serve CLI on that export,
     whose judge CSV must equal the one of a ``Predictor`` on the restored
     model; a profiled ``Trainer.fit``; then exact resume from the seeded
@@ -182,7 +190,8 @@ fatal on failure:
     then each variant's img/s, peak memory, moved statistics and skipped
     steps; (c) 8 ``nvit`` steps at batch 8 as two ``train_steps`` calls of
     4 against 8 ``train_step`` calls: parameters and AdamW state bit for
-    bit, U1 once a step, the calls' metrics the steps' means, one host
+    bit, U1 once a step, N1 49 times a step forward and backward, the
+    calls' metrics the steps' means, one host
     sync a call (the
     trainer's count and torch's sync debug mode), a NaN batch at position 1
     and 3 of a call skipped as a single step skips it; (d)
@@ -270,9 +279,20 @@ PEAK_BYTES = 3.35e12
 # AdamW's update (U1) moves 28 bytes an f32 parameter: p, g, m and v read,
 # p, m and v written.
 ADAMW_BYTES = 28
+# The LayerNorm pair (N1): (rows, width, output dtype) of ViT-L's b256 and
+# b8 steps and of ViT-B's bucket-64 forward, a bf16 input and output, and of
+# V-MoE-L's b128 ``ln2``, a bf16 input and an f32 output (and dy) for the
+# router
+LAYERNORM_SHAPES = {"vitl_b256": (256 * 197, 1024, "bfloat16"),
+                    "vitl_b8": (8 * 197, 1024, "bfloat16"),
+                    "vitb_b64": (64 * 197, 768, "bfloat16"),
+                    "vmoe_ln2_b128": (128 * 197, 1024, "float32")}
 # U1's launches by the train paths that check them (one an update): the
 # nvit train steps, the ntrain fit and the k = 4 calls
 U1_LAUNCHES: dict[str, int] = {}
+# N1's forward and backward launches by the same paths (ViT-L's 49
+# LayerNorms a forward and a backward), and by phase 5's own calls
+LAYERNORM_LAUNCHES: dict[str, list[int]] = {}
 # The attention kernels' shape sweep in bf16 (B 1, two heads): N from one
 # token to ViT at 384^2 (577), through a 16-row chunk, ragged edges, ViT-L's
 # 197 and the wgmma route's last N (256); every head dim the kernels take. At
@@ -1315,6 +1335,110 @@ def phase_adamw(torch, adamw, lib) -> dict:
     return out
 
 
+def layernorm_bytes(rows: int, width: int, backward: bool,
+                    out_size: int = 2) -> int:
+    """Bytes the LayerNorm pair moves with a bf16 x and an output (and dy)
+    of ``out_size`` bytes, each read or written once: forward x and y (4 B
+    an element in bf16), the mean and rstd written (8 B a row) and the f32
+    scale and bias read; backward x, dy and dx (6 B), the statistics and
+    the scale read, the two f32 gradients written."""
+    if backward:
+        return (4 + out_size) * rows * width + 8 * rows + 12 * width
+    return (2 + out_size) * rows * width + 8 * rows + 8 * width
+
+
+def phase_layernorm(torch, ln) -> dict:
+    """N1, the LayerNorm pair (``csrc/layernorm.cu``) at ``LAYERNORM_SHAPES``
+    (a bf16 x; y and dy bf16, or f32 for V-MoE's ``ln2``): y, dx, the
+    scale's and bias's gradients against the plain version
+    (``layer_norm_reference`` under autograd) within ``check_close``'s
+    bounds of each output's dtype (the sums over rows within 1e-4 of their
+    norm); one forward
+    and one backward launch; device times (:func:`device_ms`) of the
+    forward, the backward (its two kernels) and the pair, beside the bytes
+    bound (:func:`layernorm_bytes`) and the plain version's forward and
+    backward. The plain version is the library call, ``F.layer_norm`` on
+    the f32 copy between its two casts (what the port ran before N1, and
+    never calls on CUDA now), so its time is both ``plain_ms`` and
+    ``library_ms``."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, (rows, width, out_key) in LAYERNORM_SHAPES.items():
+        out_dtype = getattr(torch, out_key)
+        out_size = torch.finfo(out_dtype).bits // 8
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        x = (1.5 * torch.randn(rows, width, generator=gen, device=dev)
+             + 3.0 * torch.randn(rows, 1, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        w = 1.0 + 0.2 * torch.randn(width, generator=gen, device=dev)
+        b = 0.1 * torch.randn(width, generator=gen, device=dev)
+        dy = torch.randn(rows, width, generator=gen, device=dev).to(
+            out_dtype)
+        eps = 1e-12
+
+        def under_autograd(fn):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (x, w, b)]
+            y = fn(*leaves)
+            y.backward(dy)
+            return y.detach(), *(t.grad for t in leaves)
+
+        launched = (ln.launches, ln.bwd_launches)
+        got = under_autograd(lambda *t: ln.layer_norm(*t, eps, out_dtype))
+        counts = (ln.launches - launched[0], ln.bwd_launches - launched[1])
+        if counts != (1, 1):
+            raise AssertionError(f"N1 at {name}: launches {counts} for one "
+                                 "forward and backward")
+        want = under_autograd(
+            lambda *t: ln.layer_norm_reference(*t, eps, out_dtype))
+        errs = {}
+        for what, g, r, dt in zip(("y", "dx"), got[:2], want[:2],
+                                  (out_dtype, torch.bfloat16)):
+            if g.dtype != dt:
+                raise AssertionError(f"N1 {what} at {name}: {g.dtype}, "
+                                     f"expected {dt}")
+            errs[what] = check_close(torch, f"N1 {what} at {name}", g, r, dt,
+                                     verbose=False)
+        for what, g, r in zip(("dweight", "dbias"), got[2:], want[2:]):
+            rel = ((g - r).norm() / r.norm()).item()
+            errs[what] = rel
+            if rel > 1e-4:
+                raise AssertionError(f"N1 {what} at {name}: relative {rel}")
+        y, mean, rstd = ln.layer_norm_forward(x, w, b, eps, out_dtype)
+        stats = {"rows": rows, "width": width, "out_dtype": out_key,
+                 "max_abs_err": errs,
+                 "fwd_device_ms": device_ms(
+                     lambda: ln.layer_norm_forward(x, w, b, eps, out_dtype)),
+                 "bwd_device_ms": device_ms(
+                     lambda: ln.layer_norm_backward(x, dy, mean, rstd, w))}
+        stats["device_ms"] = stats["fwd_device_ms"] + stats["bwd_device_ms"]
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+
+        def plain():
+            ln.layer_norm_reference(*leaves, eps, out_dtype).backward(dy)
+
+        stats["plain_ms"] = stats["library_ms"] = device_ms(plain)
+        fwd_bound, _ = bound(0, layernorm_bytes(rows, width, False, out_size),
+                             torch.bfloat16)
+        bwd_bound, by = bound(0, layernorm_bytes(rows, width, True, out_size),
+                              torch.bfloat16)
+        stats.update(bound_ms=fwd_bound + bwd_bound, bound_by=by,
+                     fwd_share=fwd_bound / stats["fwd_device_ms"],
+                     bwd_share=bwd_bound / stats["bwd_device_ms"])
+        print(f"N1 LayerNorm at {name} ({rows} x {width} bf16 -> "
+              f"{out_key}): forward "
+              f"{stats['fwd_device_ms']:.4f} ms ({stats['fwd_share']:.3f} of "
+              f"its bound {fwd_bound:.4f}), backward "
+              f"{stats['bwd_device_ms']:.4f} ms ({stats['bwd_share']:.3f} of "
+              f"{bwd_bound:.4f}); pair {stats['device_ms']:.4f} against "
+              f"plain (= library) {stats['plain_ms']:.4f}, bound "
+              f"{stats['bound_ms']:.4f} ({by}); errors {errs}")
+        out[name] = stats
+        del x, dy, y, mean, rstd, leaves, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve(torch, attn, serve, work: str, pth: str, data: str,
                 layers: int) -> int:
     """The serve CLI, three ways; returns the kernel launches it made."""
@@ -1474,11 +1598,12 @@ def train_model(create_model, state_dict, variant: str, dev):
 def phase_train(attn, create_model, Trainer, state_dict, data: str,
                 layers: int, dev, steps: int = 5):
     """The nvit train step through the port's Trainer on loader batches,
-    one U1 launch each; returns the K1 and K2 launches of those steps."""
+    one U1 launch and 49 N1 forward and backward launches each; returns the
+    K1 and K2 launches of those steps."""
     from touhouimageclassification_tpu_torch.data import (image_loader,
                                                          random_split,
                                                          scan_image_folder)
-    from touhouimageclassification_tpu_torch.ops import adamw
+    from touhouimageclassification_tpu_torch.ops import adamw, layernorm
 
     cfg = nvit_config(data)
     index = scan_image_folder(data)
@@ -1494,14 +1619,17 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
     batches = iter(train)
     zero_counts(attn)
     for i in range(steps):
-        before = (attn.launches, attn.bwd_launches, adamw.launches)
+        before = (attn.launches, attn.bwd_launches, adamw.launches,
+                  layernorm.launches, layernorm.bwd_launches)
         count = state.optimizer.count
         m = trainer.train_step(state, trainer.stage(next(batches)))
         made = (attn.launches - before[0], attn.bwd_launches - before[1])
         updates = adamw.launches - before[2]
+        norms = (layernorm.launches - before[3],
+                 layernorm.bwd_launches - before[4])
         print(f"nvit train step {i + 1}: loss {m['loss']:.6f}, grad_norm "
               f"{m['grad_norm']:.6f}, K1/K2 launches {made}, U1 launches "
-              f"{updates}, lr {state.optimizer.lr:g}")
+              f"{updates}, N1 launches {norms}, lr {state.optimizer.lr:g}")
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
             raise AssertionError(f"step {i + 1}: non-finite loss or grad_norm")
         if state.optimizer.count != count + 1:
@@ -1511,7 +1639,11 @@ def phase_train(attn, create_model, Trainer, state_dict, data: str,
                                  f"expected {layers} each")
         if updates != 1:
             raise AssertionError(f"step {i + 1}: {updates} U1 launches")
+        if norms != (2 * layers + 1, 2 * layers + 1):
+            raise AssertionError(f"step {i + 1}: N1 launches {norms}, "
+                                 f"expected {2 * layers + 1} each")
     check_updates("train", steps)
+    check_layernorms("train", layers, steps, steps)
     launches = (attn.launches, attn.bwd_launches)
     if attn.route_launches != model_routes(*launches):
         raise AssertionError(f"train: K1/K2 launches by route "
@@ -1722,6 +1854,7 @@ def phase_fit(torch, attn, create_model, serve, data: str, pth: str,
         raise AssertionError(f"ntrain fit: {trainer.state.optimizer.count} "
                              f"updates in {steps} steps")
     check_updates("fit", steps)
+    check_layernorms("fit", layers, steps + val_batches, steps)
     records = [r for r in fit_records("log", cfg.train_id) if "epoch" in r]
     if len(records) != 1 or not all(np.isfinite(records[0][k]) for k in (
             "train_loss", "val_loss", "val_acc")):
@@ -2505,11 +2638,12 @@ def phase_tile_studies(torch, attn, study):
 
 
 def zero_counts(attn) -> None:
-    """Set K1's, K2's and U1's launch counts and K1's and K2's routes to 0
-    before a path."""
-    from touhouimageclassification_tpu_torch.ops import adamw
+    """Set K1's, K2's, U1's and N1's launch counts and K1's and K2's routes
+    to 0 before a path."""
+    from touhouimageclassification_tpu_torch.ops import adamw, layernorm
 
     attn.launches = attn.bwd_launches = adamw.launches = 0
+    layernorm.launches = layernorm.bwd_launches = 0
     zero_routes(attn)
 
 
@@ -2523,6 +2657,25 @@ def check_updates(path: str, expect: int) -> None:
         raise AssertionError(f"{path}: {adamw.launches} U1 launches for "
                              f"{expect} updates")
     U1_LAUNCHES[path] = adamw.launches
+
+
+def check_layernorms(path: str, layers: int, forwards: int,
+                     backwards: int) -> None:
+    """N1's launches since :func:`zero_counts` must be ViT-L's ``2 * layers
+    + 1`` LayerNorms in each of ``forwards`` forwards and ``backwards``
+    backwards (eager, captured or replayed alike); kept in
+    ``LAYERNORM_LAUNCHES[path]``."""
+    from touhouimageclassification_tpu_torch.ops import layernorm
+
+    per = 2 * layers + 1
+    made = [layernorm.launches, layernorm.bwd_launches]
+    expect = [per * forwards, per * backwards]
+    print(f"{path}: N1 launches {made} (expected {expect})")
+    if made != expect:
+        raise AssertionError(f"{path}: N1 launches {made} for {forwards} "
+                             f"forwards and {backwards} backwards of "
+                             f"{per} LayerNorms")
+    LAYERNORM_LAUNCHES[path] = made
 
 
 def read_counts(attn, what: str, expect: tuple[int, int]) -> tuple[int, int]:
@@ -4311,6 +4464,7 @@ def phase_steps_per_call(torch, attn, create_model, Trainer, state_dict,
     launches = read_counts(attn, "18(c) steps_per_call 4, 8 steps",
                            (SPC_STEPS * layers, SPC_STEPS * layers))
     check_updates("steps_per_call", SPC_STEPS)
+    check_layernorms("steps_per_call", layers, SPC_STEPS, SPC_STEPS)
     got = snapshot(grouped)
     diff = worst(got, ref)
     # once warm: a fresh process's or trainer's first steps make one-time
@@ -4504,7 +4658,8 @@ def main() -> int:
     from touhouimageclassification_tpu_torch.config import vit_config
     from touhouimageclassification_tpu_torch.infer import serve
     from touhouimageclassification_tpu_torch.models import create_model
-    from touhouimageclassification_tpu_torch.ops import _build, adamw
+    from touhouimageclassification_tpu_torch.ops import (_build, adamw,
+                                                         layernorm)
     from touhouimageclassification_tpu_torch.ops import attention as attn
     from touhouimageclassification_tpu_torch.ops import attention_study as study
     from touhouimageclassification_tpu_torch.ops import patch_embed as pe
@@ -4535,6 +4690,10 @@ def main() -> int:
     packed_launches = phase_packed_op(torch, attn)
     phase_fresh_thread(torch, attn, pe)
     adamw_stats = phase_adamw(torch, adamw, _build.load_library())
+    launched = (layernorm.launches, layernorm.bwd_launches)
+    layernorm_stats = phase_layernorm(torch, layernorm)
+    LAYERNORM_LAUNCHES["smoke"] = [layernorm.launches - launched[0],
+                                   layernorm.bwd_launches - launched[1]]
 
     layers = 24
     build_dir = os.path.join(ROOT, "build")
@@ -4645,7 +4804,15 @@ def main() -> int:
             "replaces": "none (optax.adamw, fused by XLA)",
             "launches": U1_LAUNCHES["fit"],
             "launches_by_path": U1_LAUNCHES, **adamw_stats["vit_l"],
-            "vmoe": adamw_stats["vmoe"]}]
+            "vmoe": adamw_stats["vmoe"]},
+           {"name": "layernorm", "route": "cuda",
+            "source": csrc + "layernorm.cu",
+            "device_routes": {"bfloat16": "simt", "float32": "simt"},
+            "replaces": "none (flax LayerNorm, fused by XLA with its casts)",
+            "launches": LAYERNORM_LAUNCHES["fit"],
+            "launches_by_path": LAYERNORM_LAUNCHES,
+            **layernorm_stats["vitl_b256"],
+            "shapes": layernorm_stats}]
         + study_kernels + tile_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,13 +133,13 @@ NO_FALLBACK = ("ops/attention.py", "ops/patch_embed.py", "ops/_build.py",
                "parallel/dist.py", "parallel/mesh.py",
                "parallel/collectives.py", "analysis/aug.py",
                "utils/extract_ckpt.py", "infer/serve.py",
-               "ops/batchnorm.py", "ops/adamw.py")
+               "ops/batchnorm.py", "ops/adamw.py", "ops/layernorm.py")
 
 
 def test_kernel_wrapper_has_no_fallback():
-    """The kernel wrappers (K1-K5), the build, the device choice, the train
-    modules that place tensors, the ResNet and its BatchNorm variants, the
-    mixtures' dispatch, models
+    """The kernel wrappers (K1-K5, U1, N1), the build, the device choice,
+    the train modules that place tensors, the ResNet and its BatchNorm
+    variants, the mixtures' dispatch, models
     and tasks, the web daemon, and the multi-process start-up, grid and
     collectives, the augmentation grids, the extractor and serve's loading
     route (from ``get_model`` to the export's loader; the judge's canvas

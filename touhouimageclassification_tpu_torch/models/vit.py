@@ -14,8 +14,9 @@ Same architecture and numerics as the JAX ``ViT``:
   the plain version (``'xla_remat'`` recomputes it in the backward instead
   of saving the probabilities);
 - LayerNorms compute in f32 with f32 weights and return the compute dtype,
-  as flax's ``LayerNorm(dtype=..., param_dtype=float32)`` does; the head runs
-  in f32.
+  as flax's ``LayerNorm(dtype=..., param_dtype=float32)`` does, on CUDA as
+  one pair of kernels that read and write the compute dtype
+  (``ops/layernorm.py``, N1); the head runs in f32.
 
 Weights other than the LayerNorms and the head are held in ``param_dtype``
 and cast to ``compute_dtype`` per op, as the JAX model does with its f32
@@ -59,6 +60,7 @@ from ..config import ViTConfig
 from ..ops.attention import (flash_attention, slab_attention,
                              slab_attention_reference)
 from ..ops.gelu import gelu
+from ..ops.layernorm import layer_norm
 from ..ops.patch_embed import patch_embed
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -94,11 +96,12 @@ def _truncated_normal_(t: torch.Tensor, std: float,
 
 
 class LayerNorm(nn.LayerNorm):
-    """f32 statistics and weights, output in the input dtype."""
+    """f32 statistics and weights, output in the input dtype or
+    ``out_dtype`` (``ops/layernorm.py``: its kernel pair on CUDA)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, out_dtype)
 
 
 class Linear(nn.Linear):

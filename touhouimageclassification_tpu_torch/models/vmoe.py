@@ -306,8 +306,7 @@ class MoEEncoderLayer(EncoderLayer):
 
     def forward(self, x: torch.Tensor, generator=None):
         x = x + self.attn(self.ln1(x))
-        y, aux = self.moe(nn.LayerNorm.forward(self.ln2, x.float()),
-                          generator)
+        y, aux = self.moe(self.ln2(x, out_dtype=torch.float32), generator)
         return x + y, aux
 
 

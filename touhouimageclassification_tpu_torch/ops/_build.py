@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: attention forward
 and backward (each an ``mma.sync`` / SIMT source and a Hopper ``wgmma``
-source), patch embedding, the AdamW update, and the kernel studies' slab
-null copy and attention tiles) with ``nvcc`` + ctypes.
+source), patch embedding, the AdamW update, LayerNorm, and the kernel
+studies' slab null copy and attention tiles) with ``nvcc`` + ctypes.
 
 Each source compiles to an object file, all of them at once (one ``nvcc``
 process per source), and the objects link into one shared library with a
@@ -169,4 +169,15 @@ def load_library() -> ctypes.CDLL:
     lib.tic_adamw.argtypes = [ptr, i32, i64, f32, f32, f32, f32, f32, f32, f32,
                               ptr]
     lib.tic_adamw.restype = i32
+    lib.tic_layernorm_max_width.argtypes = []
+    lib.tic_layernorm_max_width.restype = i32
+    lib.tic_layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                      f32, i32, i32, ptr]
+    lib.tic_layernorm_fwd.restype = i32
+    lib.tic_layernorm_bwd_blocks.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
+                                             i32]
+    lib.tic_layernorm_bwd_blocks.restype = i32
+    lib.tic_layernorm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                      ptr, ptr, i64, i32, i32, i32, ptr]
+    lib.tic_layernorm_bwd.restype = i32
     return lib

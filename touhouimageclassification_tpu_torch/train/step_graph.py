@@ -12,11 +12,12 @@ the eager update takes, and the device spans opened during the capture
 model's own, each a pair of timing events recorded as graph nodes), which
 the trainer enters into the record after a profiled replay.
 
-The port's launch counters (``ops.attention``, ``ops.patch_embed``) count
-on the host when a kernel is launched. A kernel recorded into a graph does
-not run at capture, so :func:`captured_launches` takes the capture's
-launches back off the counters, and each :meth:`StepGraph.replay` adds
-them again: the counters keep counting kernels that ran.
+The port's launch counters (``ops.attention``, ``ops.patch_embed``,
+``ops.layernorm``) count on the host when a kernel is launched. A kernel
+recorded into a graph does not run at capture, so :func:`captured_launches`
+takes the capture's launches back off the counters, and each
+:meth:`StepGraph.replay` adds them again: the counters keep counting
+kernels that ran.
 """
 from __future__ import annotations
 
@@ -26,12 +27,12 @@ from typing import Any, Callable
 
 import torch
 
-from ..ops import attention, patch_embed
+from ..ops import attention, layernorm, patch_embed
 from ..utils.profiling import GraphSpans
 
 # the modules whose kernels a step launches, each naming its counters in
 # LAUNCH_COUNTERS: an int counts launches, a dict counts them by route
-_COUNTED = (attention, patch_embed)
+_COUNTED = (attention, patch_embed, layernorm)
 
 
 def engages(device: torch.device, processes: int) -> bool:
