@@ -55,7 +55,14 @@ fatal on failure:
    backward launch, and the device times of the forward, the backward and
    the pair beside the plain version (``F.layer_norm`` on f32 between two
    casts, under autograd, which is also the library call) and the bytes
-   bound;
+   bound; then SwinV2's window attention (W1) at SwinV2-L's stage-1
+   shifted and stage-3 shapes of a b64 step: the output and the slab's,
+   tau's and the bias's gradients against the plain form, two backward
+   calls bit-equal, one forward and one backward launch a call, the device
+   times of the forward and the backward beside the plain form's and the
+   library's (the port's first form: the normalisation and SDPA's
+   memory-efficient kernel) and the bound; and 24 forward and 24 backward
+   launches in a SwinV2-L forward and backward;
 6. run ``infer.serve.main`` on a 120-class fixture ImageFolder: ``--full``
    without and with the canvas cache (which resizes on the device), then one
    single image; check the CSVs and that every forward launched K1 once per
@@ -214,6 +221,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import signal
@@ -287,12 +295,31 @@ LAYERNORM_SHAPES = {"vitl_b256": (256 * 197, 1024, "bfloat16"),
                     "vitl_b8": (8 * 197, 1024, "bfloat16"),
                     "vitb_b64": (64 * 197, 768, "bfloat16"),
                     "vmoe_ln2_b128": (128 * 197, 1024, "float32")}
+# W1, SwinV2's window attention (``ops/window_attention.py``), at SwinV2-L's
+# b64 step: (rows, bias windows, heads, N, D) of stage 1's shifted blocks
+# (64 images x 16 windows, a bias per window index), of its unshifted ones
+# (one bias for all 1,024 windows, so the backward sums the bias gradient
+# over groups of images), of stage 3's (one window of 576 tokens an image,
+# 24 heads) and of stage 4's (N 144, 48 heads, also in groups)
+W1_SHAPES = {"stage1_shifted": (64 * 16, 16, 6, 576, 32),
+             "stage1": (64 * 16, 1, 6, 576, 32),
+             "stage3": (64, 1, 24, 576, 32),
+             "stage4": (64, 1, 48, 144, 32)}
+# SwinV2-L's 24 blocks: one W1 forward and one backward each a train step
+W1_STEP_LAUNCHES = 24
+# W1 against its plain form, relative to the plain form's largest entry:
+# the output and the slab's, tau's and the bias's gradients (the card tests'
+# bound, tests/test_torch_swin.py)
+W1_TOL = 3e-2
 # U1's launches by the train paths that check them (one an update): the
 # nvit train steps, the ntrain fit and the k = 4 calls
 U1_LAUNCHES: dict[str, int] = {}
 # N1's forward and backward launches by the same paths (ViT-L's 49
 # LayerNorms a forward and a backward), and by phase 5's own calls
 LAYERNORM_LAUNCHES: dict[str, list[int]] = {}
+# W1's forward and backward launches by phase 5's own calls and by the
+# SwinV2-L train steps
+W1_LAUNCHES: dict[str, list[int]] = {}
 # The attention kernels' shape sweep in bf16 (B 1, two heads): N from one
 # token to ViT at 384^2 (577), through a 16-row chunk, ragged edges, ViT-L's
 # 197 and the wgmma route's last N (256); every head dim the kernels take. At
@@ -1435,6 +1462,193 @@ def phase_layernorm(torch, ln) -> dict:
               f"{stats['bound_ms']:.4f} ({by}); errors {errs}")
         out[name] = stats
         del x, dy, y, mean, rstd, leaves, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def w1_operands(torch, rows, windows, heads, n, d, dev):
+    """bf16 slab and bias, an f32 tau about ln 10 and a bf16 output
+    gradient for W1, from the seed; the bias 16 sigmoid of a normal plus a
+    -100 mask on a third of each window index's pairs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    qkv = torch.randn(rows, n, 3 * heads * d, generator=gen, device=dev)
+    bias = 16 * torch.sigmoid(torch.randn(1, heads, n, n, generator=gen,
+                                          device=dev))
+    if windows > 1:
+        bias = bias - 100.0 * (torch.rand(windows, 1, n, n, generator=gen,
+                                          device=dev) < 0.3)
+    tau = math.log(10.0) + 0.2 * torch.randn(heads, 1, 1, generator=gen,
+                                             device=dev)
+    dout = torch.randn(rows, n, heads * d, generator=gen, device=dev)
+    return (qkv.to(torch.bfloat16), tau, bias.to(torch.bfloat16),
+            dout.to(torch.bfloat16))
+
+
+def w1_library(torch, wa, qkv, tau, bias, heads):
+    """The port's first form of the window attention, the yardstick W1
+    replaced: q and k normalised (``_ScaledCosineQKV``), then SDPA's
+    memory-efficient kernel with the bias as an additive mask, each (window,
+    head) pair one head of its image (timed here only; the port never calls
+    SDPA)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rows, n, _ = qkv.shape
+    windows = bias.shape[0]
+    q, k, v = wa._ScaledCosineQKV.apply(qkv, tau, heads)
+    q, k, v = (t.reshape(rows // windows, windows * heads, n, -1)
+               for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias.view(1, windows * heads, n, n), scale=1.0)
+
+
+def phase_swin_train(torch, wa, Trainer, dev, steps: int = 4) -> dict:
+    """SwinV2-L's ``nvit`` train steps through the port's Trainer at 384^2
+    (batch 8 from a 448^2 canvas): the first eager, the second captured
+    and replayed, the rest replayed. Each step makes 24 W1 forward and 24
+    backward launches, and so do the steps in all (kept in
+    ``W1_LAUNCHES["swin_train"]``)."""
+    from touhouimageclassification_tpu_torch.config import PRESETS
+    from touhouimageclassification_tpu_torch.models import create_model
+    from touhouimageclassification_tpu_torch.ops import adamw
+
+    classes, batch = 120, 8
+    cfg = dataclasses.replace(PRESETS["nvit"], seed=SEED,
+                              global_batch_size=batch)
+    model = create_model("swinv2-large-w24-384", num_classes=classes,
+                         device=dev, param_dtype="float32")
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_swin_",
+                                     dir=build_dir) as log_dir:
+        trainer = Trainer(dataclasses.replace(cfg, log_dir=log_dir),
+                          model=model, device=dev)
+        state = trainer.init_state()
+        rng = np.random.default_rng(SEED)
+        launched = (wa.launches, wa.bwd_launches, adamw.launches)
+        for i in range(steps):
+            before = (wa.launches, wa.bwd_launches)
+            count = state.optimizer.count
+            m = trainer.train_step(state, trainer.stage({
+                "image": rng.integers(0, 256, (batch, 448, 448, 3), np.uint8),
+                "label": rng.integers(0, classes, batch)}))
+            made = [wa.launches - before[0], wa.bwd_launches - before[1]]
+            print(f"SwinV2-L train step {i + 1}: loss {m['loss']:.6f}, "
+                  f"grad_norm {m['grad_norm']:.6f}, W1 launches {made} "
+                  f"(captures {trainer.graph_captures}, replays "
+                  f"{trainer.graph_replays})")
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"SwinV2-L step {i + 1}: non-finite "
+                                     "loss or grad_norm")
+            if state.optimizer.count != count + 1:
+                raise AssertionError(f"SwinV2-L step {i + 1} was skipped by "
+                                     "the NaN guard")
+            if made != [W1_STEP_LAUNCHES] * 2:
+                raise AssertionError(f"SwinV2-L step {i + 1}: W1 launches "
+                                     f"{made}, expected {W1_STEP_LAUNCHES} "
+                                     "each")
+        made = [wa.launches - launched[0], wa.bwd_launches - launched[1]]
+        graph = (trainer.graph_captures, trainer.graph_fallbacks,
+                 trainer.graph_replays)
+        updates = adamw.launches - launched[2]
+    if graph != (1, 0, steps - 1):
+        raise AssertionError(f"SwinV2-L steps: captures, fallbacks, replays "
+                             f"{graph}, expected (1, 0, {steps - 1})")
+    if made != [W1_STEP_LAUNCHES * steps] * 2 or updates != steps:
+        raise AssertionError(f"SwinV2-L steps: W1 launches {made}, U1 "
+                             f"{updates} in {steps} steps")
+    W1_LAUNCHES["swin_train"] = made
+    print(f"SwinV2-L: {steps} train steps (1 eager, 1 captured, "
+          f"{steps - 1} replays), W1 launches {made}, U1 {updates}")
+    del trainer, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "batch": batch, "graph": list(graph)}
+
+
+def phase_window_attention(torch, wa) -> dict:
+    """W1 (``csrc/window_attention.cu``) at ``W1_SHAPES``: the output and
+    the slab's, tau's and the bias's gradients against the plain form
+    (``window_attention_reference`` on the same bf16 operands in f32, under
+    autograd) within ``W1_TOL`` of its largest entry; two backward calls
+    bit-equal; one forward and one backward launch a call; device times
+    (:func:`device_ms`) of the forward and the backward beside the plain
+    form's (forward + backward) and the library's (the normalisation and
+    SDPA's memory-efficient kernel, forward + backward), and the bound
+    (``benchmark/roofline_swin.py``'s count: forward 4, backward 10 W H N²
+    D FLOPs; the bf16 tensors and the bias read once, the gradients written
+    once)."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, (rows, windows, heads, n, d) in W1_SHAPES.items():
+        qkv, tau, bias, dout = w1_operands(torch, rows, windows, heads, n, d,
+                                           dev)
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, tau, bias)]
+        launched = (wa.launches, wa.bwd_launches)
+        got = wa.window_attention(*leaves)
+        got.backward(dout)
+        counts = (wa.launches - launched[0], wa.bwd_launches - launched[1])
+        if counts != (1, 1):
+            raise AssertionError(f"W1 at {name}: launches {counts} for one "
+                                 "forward and backward")
+        ref_in = [t.detach().float().requires_grad_(True) for t in leaves]
+        ref = wa.window_attention_reference(*ref_in)
+        ref.backward(dout.float())
+        gaps = {what: float((g.detach().float() - r.detach()).abs().max()
+                            / r.detach().abs().max())
+                for what, g, r in zip(
+                    ("out", "dqkv", "dtau", "dbias"),
+                    (got,) + tuple(t.grad for t in leaves),
+                    (ref,) + tuple(t.grad for t in ref_in))}
+        if max(gaps.values()) > W1_TOL:
+            raise AssertionError(f"W1 at {name}: gaps {gaps} past {W1_TOL}")
+        del ref, ref_in, got, leaves
+        torch.cuda.empty_cache()
+        saved = wa.window_attention_forward(qkv, tau, bias)
+        grads = [wa.window_attention_backward(qkv, tau, bias, *saved, dout)
+                 for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            raise AssertionError(f"W1 at {name}: two backward calls differ")
+        del grads
+        stats = {"rows": rows, "bias_windows": windows, "heads": heads,
+                 "n": n, "d": d, "max_rel_err": gaps,
+                 "fwd_device_ms": device_ms(
+                     lambda: wa.window_attention_forward(qkv, tau, bias),
+                     calls=5, reps=5),
+                 "bwd_device_ms": device_ms(
+                     lambda: wa.window_attention_backward(qkv, tau, bias,
+                                                          *saved, dout),
+                     calls=5, reps=5)}
+        stats["device_ms"] = stats["fwd_device_ms"] + stats["bwd_device_ms"]
+        for key, form in (("plain_ms", wa.window_attention_reference),
+                          ("library_ms", lambda *t: w1_library(
+                              torch, wa, *t, heads))):
+            leaves = [(t.float() if key == "plain_ms" else t.clone())
+                      .requires_grad_(True) for t in (qkv, tau, bias)]
+
+            def call(form=form, leaves=leaves):
+                y = form(*leaves)
+                y.backward(dout.to(y.dtype).view(y.shape))
+                for t in leaves:
+                    t.grad = None
+
+            stats[key] = device_ms(call, calls=2, reps=3)
+            del leaves
+            torch.cuda.empty_cache()
+        flops = 14.0 * rows * heads * n * n * d
+        nbytes = 2.0 * (11 * rows * heads * n * d + 3 * windows * heads * n * n)
+        bound_ms, by = bound(flops, nbytes, torch.bfloat16)
+        stats.update(bound_ms=bound_ms, bound_by=by,
+                     share=bound_ms / stats["device_ms"])
+        print(f"W1 window attention at {name} ({rows} rows x {heads} heads, "
+              f"N {n}, D {d}, bias windows {windows}): forward "
+              f"{stats['fwd_device_ms']:.4f} ms, backward "
+              f"{stats['bwd_device_ms']:.4f} ms, pair {stats['device_ms']:.4f}"
+              f" ({stats['share']:.3f} of its bound {bound_ms:.4f}, {by}); "
+              f"plain {stats['plain_ms']:.4f}, library (normalisation + SDPA "
+              f"memory-efficient) {stats['library_ms']:.4f}; gaps {gaps}")
+        out[name] = stats
+        del qkv, tau, bias, dout, saved
         torch.cuda.empty_cache()
     return out
 
@@ -2638,12 +2852,14 @@ def phase_tile_studies(torch, attn, study):
 
 
 def zero_counts(attn) -> None:
-    """Set K1's, K2's, U1's and N1's launch counts and K1's and K2's routes
-    to 0 before a path."""
-    from touhouimageclassification_tpu_torch.ops import adamw, layernorm
+    """Set K1's, K2's, U1's, N1's and W1's launch counts and K1's and K2's
+    routes to 0 before a path."""
+    from touhouimageclassification_tpu_torch.ops import (adamw, layernorm,
+                                                         window_attention)
 
     attn.launches = attn.bwd_launches = adamw.launches = 0
     layernorm.launches = layernorm.bwd_launches = 0
+    window_attention.launches = window_attention.bwd_launches = 0
     zero_routes(attn)
 
 
@@ -4660,6 +4876,7 @@ def main() -> int:
     from touhouimageclassification_tpu_torch.models import create_model
     from touhouimageclassification_tpu_torch.ops import (_build, adamw,
                                                          layernorm)
+    from touhouimageclassification_tpu_torch.ops import window_attention as wa
     from touhouimageclassification_tpu_torch.ops import attention as attn
     from touhouimageclassification_tpu_torch.ops import attention_study as study
     from touhouimageclassification_tpu_torch.ops import patch_embed as pe
@@ -4694,6 +4911,12 @@ def main() -> int:
     layernorm_stats = phase_layernorm(torch, layernorm)
     LAYERNORM_LAUNCHES["smoke"] = [layernorm.launches - launched[0],
                                    layernorm.bwd_launches - launched[1]]
+    launched = (wa.launches, wa.bwd_launches)
+    w1_stats = phase_window_attention(torch, wa)
+    W1_LAUNCHES["smoke"] = [wa.launches - launched[0],
+                            wa.bwd_launches - launched[1]]
+    w1_stats["swin_train"] = phase_swin_train(torch, wa, Trainer,
+                                              torch.device("cuda", 0))
 
     layers = 24
     build_dir = os.path.join(ROOT, "build")
@@ -4812,7 +5035,14 @@ def main() -> int:
             "launches": LAYERNORM_LAUNCHES["fit"],
             "launches_by_path": LAYERNORM_LAUNCHES,
             **layernorm_stats["vitl_b256"],
-            "shapes": layernorm_stats}]
+            "shapes": layernorm_stats},
+           {"name": "window_attention", "route": "cuda",
+            "source": csrc + "window_attention.cu",
+            "device_routes": {"bfloat16": "mma"},
+            "replaces": "none (the JAX package has no SwinV2)",
+            "launches": W1_LAUNCHES["swin_train"],
+            "launches_by_path": W1_LAUNCHES,
+            **w1_stats["stage1_shifted"], "shapes": w1_stats}]
         + study_kernels + tile_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,11 @@ largest entry, as the V-MoE tests hold theirs.
 
 On the card (marked ``cuda``; the module imports nothing of JAX, so
 ``python -m pytest --noconftest tests/test_torch_swin.py -m cuda``): the
-window attention's memory-efficient route against its plain form in
-float32 arithmetic on the same bf16 inputs, with and without the shift
-mask, forward and backward; a tiny model's step captured and replayed.
+window attention's kernel pair (W1) against its plain form in float32
+arithmetic on the same bf16 inputs, at SwinV2-L's stage shapes and the tiny
+config's D 16, with and without the shift mask, tau about its initial ln 10
+and at the clamp, forward and backward; two backward calls bit-equal; a
+tiny model's step captured and replayed, bit-equal to eager steps.
 """
 import dataclasses
 import json
@@ -305,7 +307,7 @@ def _attention_inputs(images=2, windows=4, h=3, n=16, d=8, seed=0,
     bias, with a random shift-like mask per window index."""
     gen = torch.Generator().manual_seed(seed)
     qkv = torch.randn(images * windows, n, 3 * h * d, generator=gen)
-    tau = torch.log(torch.tensor([8.0, 30.0, 200.0]).repeat(2)[:h]).view(
+    tau = torch.log(torch.tensor([8.0, 30.0, 200.0]).repeat(h)[:h]).view(
         h, 1, 1)
     bias = 16 * torch.rand(1, h, n, n, generator=gen)
     if masked:
@@ -416,60 +418,131 @@ def _cuda():
     return torch.device("cuda", 0)
 
 
+# (images, windows, heads, N, D) of the card tests: SwinV2-L's stage 1 (16
+# windows of 576 tokens, 6 heads of 32), stage 3 (one window, 24 heads),
+# stage 4 (N 144, 48 heads), and the tiny config's stage 1 (D 16); with
+# ``masked`` the bias is one per window, as a shifted block's
+CARD_SHAPES = {"stage1": (2, 16, 6, 576, 32), "stage3": (3, 1, 24, 576, 32),
+               "stage4": (4, 1, 48, 144, 32), "tiny": (2, 16, 2, 16, 16)}
+
+
+def _card_inputs(shape, masked, tau0, dev):
+    """bf16 slab and bias on the card and an f32 tau of 0.2 standard
+    deviations about ``tau0``, each a leaf that takes a gradient."""
+    images, windows, heads, n, d = CARD_SHAPES[shape]
+    qkv, _, bias = _attention_inputs(images, windows, heads, n, d,
+                                     masked=masked, dtype=torch.bfloat16,
+                                     device=dev)
+    tau = tau0 + 0.2 * torch.randn(
+        heads, 1, 1, generator=torch.Generator().manual_seed(3)).to(dev)
+    return [t.to(dt).requires_grad_(True) for t, dt in (
+        (qkv, torch.bfloat16), (tau, torch.float32), (bias, torch.bfloat16))]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("tau0", [swin.LOGIT_SCALE_INIT, wa.LOGIT_SCALE_MAX],
+                         ids=["tau-ln10", "tau-clamp"])
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
 @pytest.mark.parametrize("masked", [False, True])
-def test_window_attention_on_the_card_against_its_plain_form(masked):
-    """bf16 operands at stage 1's shape (16 windows of 576 tokens, 6 heads
-    of 32) for 2 images, tau about its initial ln 10: the output and every
-    gradient within bf16's rounding of the float32 plain form on the same
-    operands. The bf16 q and k carry their rounding into the scores times
-    the head's scale (about 10 / 2^9 here), so a test at the clamp's 100
-    would hold bf16 to a tenth of that."""
+def test_window_attention_on_the_card_against_its_plain_form(masked, shape,
+                                                             tau0):
+    """W1 on bf16 operands: the output and the slab's, tau's and the
+    bias's gradients within bf16's rounding of the float32 plain form on
+    the same operands. The head's scale multiplies the f32 scores after
+    the product, so tau at the clamp's 100 holds to the tolerance of tau
+    about ln 10; the clamped heads' tau takes no gradient."""
     dev = _cuda()
-    qkv, _, bias = _attention_inputs(2, 16, 6, 576, 32, masked=masked,
-                                     dtype=torch.bfloat16, device=dev)
-    tau = swin.LOGIT_SCALE_INIT + 0.2 * torch.randn(
-        6, 1, 1, generator=torch.Generator().manual_seed(3)).to(dev)
-    qkv, tau = (t.requires_grad_(True) for t in (qkv, tau))
-    bias16 = bias.to(torch.bfloat16).requires_grad_(True)
+    leaves = _card_inputs(shape, masked, tau0, dev)
     before = (wa.launches, wa.bwd_launches)
-    out = wa.window_attention(qkv, tau, bias16)
-    dout = torch.randn_like(out)
+    out = wa.window_attention(*leaves)
+    dout = torch.randn(out.shape, generator=torch.Generator(dev)
+                       .manual_seed(4), device=dev).to(out.dtype)
     out.backward(dout)
     assert (wa.launches, wa.bwd_launches) == (before[0] + 1, before[1] + 1)
-    ref_in = [t.detach().float().requires_grad_(True)
-              for t in (qkv, tau, bias16)]
+    ref_in = [t.detach().float().requires_grad_(True) for t in leaves]
     ref = wa.window_attention_reference(*ref_in)
     ref.backward(dout.float())
     gaps = {name: float((got.detach().float() - want).abs().max()
-                        / want.abs().max())
+                        / want.abs().max().clamp_min(1e-30))
             for name, got, want in zip(
                 ("out", "qkv", "tau", "bias"),
-                (out, qkv.grad, tau.grad, bias16.grad),
+                (out,) + tuple(t.grad for t in leaves),
                 (ref,) + tuple(t.grad for t in ref_in))}
     assert max(gaps.values()) <= 3e-2, gaps
+    clamped = (leaves[1] > wa.LOGIT_SCALE_MAX).flatten()
+    assert bool((leaves[1].grad.flatten()[clamped] == 0).all())
+    assert bool((leaves[1].grad.flatten()[~clamped] != 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["stage1", "stage4"])
+def test_two_window_attention_backward_calls_are_bit_equal(shape):
+    """W1's backward sums in a fixed order, with no float atomics."""
+    dev = _cuda()
+    leaves = _card_inputs(shape, True, swin.LOGIT_SCALE_INIT, dev)
+    with torch.no_grad():
+        saved = wa.window_attention_forward(*leaves)
+    dout = torch.randn(saved[0].shape, generator=torch.Generator(dev)
+                       .manual_seed(4), device=dev).to(saved[0].dtype)
+    first, second = (wa.window_attention_backward(*leaves, *saved, dout)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_window_attention_on_the_card_refuses_what_w1_does_not_take():
+    """Another dtype, head dim or N raises; there is no fallback."""
+    dev = _cuda()
+    qkv, tau, bias = _card_inputs("tiny", False, swin.LOGIT_SCALE_INIT, dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.window_attention(qkv.float(), tau, bias.float())
+    wide = torch.zeros(2, 16, 3 * 2 * 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="heads of"):
+        wa.window_attention(wide, tau, bias)
+    n = wa.MAX_TOKENS + 1
+    long = torch.zeros(1, n, 3 * 2 * 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="tokens"):
+        wa.window_attention(long, tau, torch.zeros(
+            1, 2, n, n, dtype=torch.bfloat16, device=dev))
 
 
 @pytest.mark.cuda
 def test_a_tiny_swin_step_replays_its_graph_on_the_card(tmp_path):
+    """The tiny model's steps (W1 at D 16) captured and replayed equal
+    eager steps bit for bit, but for the position-bias MLP: its gradient
+    comes through ``index_select``'s backward, whose atomic adds differ
+    between two eager runs too. Each replay credits W1's launches, and a
+    profiled replay records the attention spans of its capture."""
     dev = _cuda()
-    cfg = dataclasses.replace(PRESETS["nvit"], global_batch_size=4,
-                              log_dir=str(tmp_path / "log"))
-    model = SwinV2(CFG, "bfloat16", dev, "float32", seed=3)
-    trainer = Trainer(cfg, model=model, device=dev)
-    state = trainer.init_state()
     rng = np.random.default_rng(0)
     batches = [{"image": rng.integers(0, 256, (4, 72, 72, 3), np.uint8),
                 "label": rng.integers(0, 5, 4)} for _ in range(4)]
-    before = wa.launches
-    losses = [trainer.train_step(state, trainer.stage(b))["loss"]
-              for b in batches]
+    runs = []
+    for graphed in (False, True):
+        cfg = dataclasses.replace(PRESETS["nvit"], global_batch_size=4,
+                                  log_dir=str(tmp_path / str(graphed)))
+        model = SwinV2(CFG, "bfloat16", dev, "float32", seed=3)
+        trainer = Trainer(cfg, model=model, device=dev)
+        state = trainer.init_state()
+        trainer._graphable = graphed
+        before = (wa.launches, wa.bwd_launches)
+        losses = [trainer.train_step(state, trainer.stage(b))["loss"]
+                  for b in batches]
+        assert all(math.isfinite(x) for x in losses)
+        # eight attention calls a step, forward and backward, credited on
+        # the replays
+        assert (wa.launches - before[0], wa.bwd_launches - before[1]) == (
+            8 * 4, 8 * 4)
+        runs.append((losses, {k: v.detach().clone() for k, v in
+                              model.state_dict().items()}))
     # the first step warms the shapes, the second captures and replays
     assert (trainer.graph_captures, trainer.graph_fallbacks,
             trainer.graph_replays) == (1, 0, 3)
-    assert all(math.isfinite(x) for x in losses)
-    # eight attention calls a step, credited on the replays
-    assert wa.launches - before == 8 * 4
+    assert runs[0][0] == runs[1][0]
+    differ = [k for k in runs[0][1] if ".cpb_mlp." not in k
+              and not torch.equal(runs[0][1][k], runs[1][1][k])]
+    assert not differ, differ
     profiling.clear()
     with profiling.trace(str(tmp_path / "trace")):
         trainer.train_step(state, trainer.stage(batches[0]))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: attention forward
 and backward (each an ``mma.sync`` / SIMT source and a Hopper ``wgmma``
-source), patch embedding, the AdamW update, LayerNorm, and the kernel
-studies' slab null copy and attention tiles) with ``nvcc`` + ctypes.
+source), SwinV2's window attention, patch embedding, the AdamW update,
+LayerNorm, and the kernel studies' slab null copy and attention tiles) with
+``nvcc`` + ctypes.
 
 Each source compiles to an object file, all of them at once (one ``nvcc``
 process per source), and the objects link into one shared library with a
@@ -180,4 +181,13 @@ def load_library() -> ctypes.CDLL:
     lib.tic_layernorm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                       ptr, ptr, i64, i32, i32, i32, ptr]
     lib.tic_layernorm_bwd.restype = i32
+    lib.tic_window_attention_groups.argtypes = [i32, i32, i32, i32, i32]
+    lib.tic_window_attention_groups.restype = i32
+    lib.tic_window_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                             i32, i32, i32, i32, ptr]
+    lib.tic_window_attention_fwd.restype = i32
+    lib.tic_window_attention_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                             ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                             i32, i32, i32, i32, i32, ptr]
+    lib.tic_window_attention_bwd.restype = i32
     return lib

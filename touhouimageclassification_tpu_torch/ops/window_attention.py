@@ -13,20 +13,24 @@ for every window, or (nW, H, N, N), a bias per window index: the per-head
 bias plus that window's shift mask (``models/swin.py`` builds both in its
 span ``swin.bias``). Neither is ever expanded to the batch in memory.
 
-q and k are normalised, q times its head's clamped scale, in the slab's
-own order (:class:`_ScaledCosineQKV`), whose backward writes the slab's
-gradient in place of three gradients stacked and copied back. On the CPU
-the attention is then plain torch (an explicit f32 softmax). On CUDA it is
-torch's ``scaled_dot_product_attention`` held to its memory-efficient
-backend, the one that takes an additive bias with a gradient, with
-``scale=1``, on (B nW, H, N, D) views of the slabs under a (1, H, N, N)
-bias. With a bias per window index each (window, head) pair of an image is
-one head of that image, q, k, v copied to (B, nW H, N, D), so that the (nW
-H, N, N) bias is a bias per head broadcast over the B images.
+On CUDA the op is W1, one hand-written kernel pair (``csrc/window_
+attention.cu``): the forward reads the slab and the bias in place,
+multiplies the raw bf16 q and k, applies the f32 inverse norms and the
+head's scale to the f32 scores and saves the inverse norms and each
+query's log-sum-exp; the backward writes the slab's gradient (the
+normalisation's backward in its epilogues), the bias's gradient summed
+over the images inside the kernel, and tau's, each in a fixed order (the
+same bits every call). It takes a bf16 slab and bias, an f32 tau, D 16 or
+32 and N up to :data:`MAX_TOKENS`; anything else raises.
 
-``launches`` and ``bwd_launches`` count the attention calls and their
-backward passes; a replayed CUDA graph credits them
-(``train/step_graph.py``).
+On the CPU the op is plain torch: q and k normalised, q times its head's
+clamped scale, in the slab's own order (:class:`_ScaledCosineQKV`, whose
+backward writes the slab's gradient), then an explicit f32 softmax.
+:func:`window_attention_reference` is the plain form step by step, the
+oracle both are held to.
+
+``launches`` and ``bwd_launches`` count W1's forward and backward calls; a
+replayed CUDA graph credits them (``train/step_graph.py``).
 """
 from __future__ import annotations
 
@@ -35,9 +39,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ._build import load_library
+
 LOGIT_SCALE_MAX = math.log(100.0)
 # F.normalize's: a row's norm is taken as at least this
 NORM_EPS = 1e-12
+# W1's shapes (``csrc/window_attention.cu``: kMaxTokens)
+MAX_TOKENS = 576
+HEAD_DIMS = (16, 32)
 
 launches = 0
 bwd_launches = 0
@@ -46,29 +55,12 @@ bwd_launches = 0
 LAUNCH_COUNTERS = ("launches", "bwd_launches")
 
 
-class _CountBackward(torch.autograd.Function):
-    """Passes the attention's output through; its backward counts the
-    attention's backward pass."""
-
-    @staticmethod
-    def forward(ctx, out):
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, grad):
-        global bwd_launches
-        bwd_launches += 1
-        return grad
-
-
 class _ScaledCosineQKV(torch.autograd.Function):
     """(B nW, N, 3C) slab -> (q / |q| s, k / |k|, v) as (B nW, H, N, D)
     views, with s = exp(min(tau, ln 100)) per head: q and k of one new
     (B nW, N, 2, H, D) tensor in the slab's own order, each rounded once
     from float32, and v of the slab. A row's squared norm is a product with
-    a vector of ones (float32 sums of the squares in the slab's dtype): a
-    reduction over the 32 elements of a head runs far below the card's
-    bandwidth.
+    a vector of ones (float32 sums of the squares in the slab's dtype).
 
     Backward, with m = s / |x| for q (1 / |x| for k): dx = m (dy - x <x,
     dy> / |x|²), q's and k's written with dv into one gradient in the
@@ -132,11 +124,118 @@ def window_attention_reference(qkv: torch.Tensor, logit_scale: torch.Tensor,
     return (p @ v).transpose(1, 2).reshape(rows, n, c3 // 3)
 
 
+def _check(qkv: torch.Tensor, logit_scale: torch.Tensor,
+           bias: torch.Tensor, heads: int, d: int) -> None:
+    """What W1 takes: a contiguous bf16 slab and bias on one CUDA device, an
+    f32 tau on it, D 16 or 32 and N up to :data:`MAX_TOKENS`."""
+    n = qkv.shape[1]
+    if qkv.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16 \
+            or logit_scale.dtype != torch.float32:
+        raise ValueError(f"window attention on CUDA takes a bfloat16 slab and "
+                         f"bias and a float32 tau, got {qkv.dtype}, "
+                         f"{bias.dtype} and {logit_scale.dtype}")
+    if d not in HEAD_DIMS or not 0 < n <= MAX_TOKENS:
+        raise ValueError(f"window attention on CUDA takes heads of "
+                         f"{HEAD_DIMS} and up to {MAX_TOKENS} tokens, got "
+                         f"D {d} and N {n}")
+    if bias.device != qkv.device or logit_scale.device != qkv.device:
+        raise ValueError(f"window attention's operands lie on {qkv.device}, "
+                         f"{bias.device} and {logit_scale.device}")
+
+
+def window_attention_forward(qkv: torch.Tensor, logit_scale: torch.Tensor,
+                             bias: torch.Tensor):
+    """``(out, lse, inv)``: W1's (B nW, N, C) output, each query's f32
+    log-sum-exp (log2 domain), (B nW, H, N), and the f32 inverse norms of q
+    and k, (B nW, 2, H, N), launched on the current stream without
+    synchronising."""
+    global launches
+    rows, n, c3 = qkv.shape
+    heads, windows = logit_scale.shape[0], bias.shape[0]
+    qkv, logit_scale, bias = (t.contiguous() for t in (qkv, logit_scale,
+                                                       bias))
+    with torch.cuda.device(qkv.device):
+        out = torch.empty(rows, n, c3 // 3, dtype=qkv.dtype, device=qkv.device)
+        lse = torch.empty(rows, heads, n, dtype=torch.float32,
+                          device=qkv.device)
+        inv = torch.empty(rows, 2, heads, n, dtype=torch.float32,
+                          device=qkv.device)
+        err = load_library().tic_window_attention_fwd(
+            qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), inv.data_ptr(), rows, n, heads,
+            c3 // 3 // heads, windows,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"window attention forward launch failed with "
+                           f"CUDA error {err} (slab {tuple(qkv.shape)}, bias "
+                           f"{tuple(bias.shape)})")
+    launches += 1
+    return out, lse, inv
+
+
+def window_attention_backward(qkv: torch.Tensor, logit_scale: torch.Tensor,
+                              bias: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, inv: torch.Tensor,
+                              dout: torch.Tensor):
+    """``(dqkv, dtau, dbias)`` of W1 at the forward's ``(out, lse, inv)``:
+    the slab's and the bias's bf16 gradients and tau's f32 one, each summed
+    in a fixed order. Launches on the current stream, without
+    synchronising."""
+    global bwd_launches
+    rows, n, c3 = qkv.shape
+    heads, windows = logit_scale.shape[0], bias.shape[0]
+    d = c3 // 3 // heads
+    qkv, logit_scale, bias, dout = (t.contiguous() for t in (
+        qkv, logit_scale, bias, dout.to(qkv.dtype)))
+    lib = load_library()
+    dev = qkv.device
+    with torch.cuda.device(dev):
+        groups = lib.tic_window_attention_groups(rows, n, heads, d, windows)
+        if groups <= 0:
+            raise RuntimeError(f"window attention backward: no grid for slab "
+                               f"{tuple(qkv.shape)} (CUDA error {-groups})")
+        tiles = -(-n // 64)
+        f32 = dict(dtype=torch.float32, device=dev)
+        dqkv = torch.empty_like(qkv)
+        dtau = torch.empty_like(logit_scale)
+        dbias = torch.empty_like(bias)
+        dsum = torch.empty(rows, heads, n, **f32)
+        bias_part = torch.empty(groups, *bias.shape, **f32)
+        tau_part = torch.empty(heads, windows, groups, tiles * tiles, **f32)
+        err = lib.tic_window_attention_bwd(
+            qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            inv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+            dtau.data_ptr(), bias_part.data_ptr(), tau_part.data_ptr(), groups,
+            rows, n, heads, d, windows,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"window attention backward launch failed with "
+                           f"CUDA error {err} (slab {tuple(qkv.shape)}, bias "
+                           f"{tuple(bias.shape)})")
+    bwd_launches += 1
+    return dqkv, dtau, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """W1: the slab, tau, the bias and the forward's output, log-sum-exp
+    and inverse norms saved."""
+
+    @staticmethod
+    def forward(ctx, qkv, logit_scale, bias):
+        saved = window_attention_forward(qkv, logit_scale, bias)
+        ctx.save_for_backward(qkv, logit_scale, bias, *saved)
+        return saved[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        return window_attention_backward(*ctx.saved_tensors, dout)
+
+
 def window_attention(qkv: torch.Tensor, logit_scale: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """(B nW, N, 3C) ``qkv``, (H, 1, 1) ``logit_scale``, (1 or nW, H, N, N)
     ``bias`` -> (B nW, N, C) in qkv's dtype (module docstring)."""
-    global launches
     rows, n, c3 = qkv.shape
     heads, windows = logit_scale.shape[0], bias.shape[0]
     c = c3 // 3
@@ -145,19 +244,11 @@ def window_attention(qkv: torch.Tensor, logit_scale: torch.Tensor,
             or bias.shape[1:] != (heads, n, n)):
         raise ValueError(f"a bias of {tuple(bias.shape)} and {heads} heads "
                          f"do not fit windows of {tuple(qkv.shape)}")
+    if qkv.device.type != "cpu":
+        _check(qkv, logit_scale, bias, heads, d)
+        return _WindowAttention.apply(qkv, logit_scale, bias)
     q, k, v = _ScaledCosineQKV.apply(qkv, logit_scale, heads)
-    if qkv.device.type == "cpu":
-        s = (q @ k.transpose(-1, -2)).view(-1, windows, heads, n, n) + bias
-        p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-        out = p.view(rows, heads, n, n) @ v
-        return out.transpose(1, 2).reshape(rows, n, c)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    images = rows // windows
-    q, k, v = (t.reshape(images, windows * heads, n, d) for t in (q, k, v))
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias.to(qkv.dtype).view(
-                1, windows * heads, n, n), scale=1.0)
-    launches += 1
-    out = out.view(images, windows, heads, n, d).transpose(2, 3)
-    return _CountBackward.apply(out.reshape(rows, n, c))
+    s = (q @ k.transpose(-1, -2)).view(-1, windows, heads, n, n) + bias
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    out = p.view(rows, heads, n, n) @ v
+    return out.transpose(1, 2).reshape(rows, n, c)
